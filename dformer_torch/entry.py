@@ -1,22 +1,35 @@
-"""Entry points of the port: build a model from explicit arguments and serve
-segmentation requests (counterpart of `__graft_entry__._build` and the
-forward that `bench.py` times).
+"""Entry points of the port: build a model from explicit arguments, serve
+segmentation requests and take training steps (counterpart of
+`__graft_entry__._build` and of the forward and the train step that
+`bench.py` times).
 
-The card is the default device. `build` raises if CUDA is unavailable unless
-the caller passes device="cpu".
+The card is the default device. `build` and `build_trainer` raise if CUDA is
+unavailable unless the caller passes device="cpu".
 """
 
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from dformer_torch.config import AttrDict
 from dformer_torch.models.builder import EncoderDecoder, build_model
+from dformer_torch.train.loop import train_step
+from dformer_torch.train.optim import make_optimizer, make_schedule
+
+# The NYUDepthv2 DFormer-Large training recipe (the port's own copy of the
+# values in `local_configs.NYUDepthv2.DFormer_Large` and its bases):
+# 795 training images at batch 8 -> 100 iterations per epoch. The recipe's
+# ignored label (background 255) is `train_steps`' default `ignore_index`.
+TRAIN_RECIPE = dict(
+    optimizer="AdamW", lr=6e-5, weight_decay=0.01, lr_power=0.9,
+    drop_path_rate=0.15, aux_rate=0.0, bn_eps=1e-3, bn_momentum=0.1,
+    warm_up_epoch=10, niters_per_epoch=100, nepochs=500)
 
 
 def build(backbone: str = "DFormer-Large", hw: Tuple[int, int] = (480, 640),
           num_classes: int = 40, dtype: Optional[torch.dtype] = torch.bfloat16,
-          device="cuda", seed: int = 0) -> EncoderDecoder:
+          device="cuda", seed: int = 0, drop_path_rate: float = 0.1,
+          bn_eps: float = 1e-3, bn_momentum: float = 0.1) -> EncoderDecoder:
     """DFormer + LightHamHead (decoder 'ham') in eval mode, with weights
     drawn from `seed`.
 
@@ -38,8 +51,9 @@ def build(backbone: str = "DFormer-Large", hw: Tuple[int, int] = (480, 640),
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg = AttrDict(backbone=backbone, decoder="ham", num_classes=num_classes,
-                   decoder_embed_dim=512, drop_path_rate=0.1, aux_rate=0.0,
-                   bn_eps=1e-3, image_height=hw[0], image_width=hw[1])
+                   decoder_embed_dim=512, drop_path_rate=drop_path_rate,
+                   aux_rate=0.0, bn_eps=bn_eps, bn_momentum=bn_momentum,
+                   image_height=hw[0], image_width=hw[1])
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = build_model(cfg, device="cpu", dtype=dtype)
@@ -63,3 +77,39 @@ def infer(model: EncoderDecoder, rgb: torch.Tensor, modal_x: torch.Tensor
     model's device -> int32 labels [B,H,W], the argmax of the logits."""
     logits = model(rgb, modal_x)
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def build_trainer(backbone: str = "DFormer-Large",
+                  hw: Tuple[int, int] = (480, 640), num_classes: int = 40,
+                  dtype: Optional[torch.dtype] = torch.bfloat16,
+                  device="cuda", seed: int = 0, **overrides
+                  ) -> Tuple[EncoderDecoder, torch.optim.Optimizer,
+                             Callable[[int], float], torch.Generator]:
+    """(model in train mode, AdamW, schedule step -> lr, generator) for the
+    `TRAIN_RECIPE`, any field of which `overrides` replace.
+
+    The weights are `build`'s draw from `seed` (LayerScales at 1: the 1e-6
+    of a fresh init would scale every MLP gradient by 1e-6). The generator,
+    seeded with `seed` on `device`, draws DropPath and dropout masks and the
+    NMF bases of each step."""
+    cfg = AttrDict(TRAIN_RECIPE, **overrides)
+    model = build(backbone, hw, num_classes, dtype, device, seed,
+                  drop_path_rate=cfg.drop_path_rate, bn_eps=cfg.bn_eps,
+                  bn_momentum=cfg.bn_momentum).train()
+    generator = torch.Generator(device=device).manual_seed(seed)
+    return model, make_optimizer(cfg, model), make_schedule(cfg), generator
+
+
+def train_steps(model: EncoderDecoder, optimizer: torch.optim.Optimizer,
+                schedule: Callable[[int], float], generator: torch.Generator,
+                batches: Sequence[Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]],
+                first_step: int = 0, ignore_index: int = 255) -> List[float]:
+    """Take one optimizer step per batch (rgb [B,H,W,3] fp32, modal_x
+    [B,H,W,C] fp32, labels [B,H,W] integer, on the model's device), steps
+    `first_step`, `first_step` + 1, ...; returns the losses. Leaves the
+    model in train mode."""
+    losses = [train_step(model, optimizer, schedule, first_step + i, rgb, gt,
+                         modal_x, generator, ignore_index=ignore_index)
+              for i, (rgb, modal_x, gt) in enumerate(batches)]
+    return [float(loss) for loss in losses]

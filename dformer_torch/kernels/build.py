@@ -13,6 +13,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -67,10 +68,10 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> dict:
-    """Compile (if needed) and load every source under csrc/. Returns
-    {name: seconds spent compiling, 0.0 if already built}; raises on the
-    first failed build."""
+    """Compile (if needed) and load every source under csrc/, one nvcc per
+    source, all started together. Returns {name: seconds spent compiling,
+    0.0 if already built}; raises if a build fails."""
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    for n in names:
-        library(n)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(library, names))
     return {n: build_seconds.get(n, 0.0) for n in names}

@@ -1,20 +1,27 @@
-"""Fused DFormer MLP block, forward: CUDA kernel wrapper and plain version.
+"""Fused DFormer MLP block: CUDA kernel wrappers and plain versions, forward
+and backward.
 
     y   = LayerNorm(x)                      # fp32 stats, eps 1e-6
     h   = y @ fc1_w + fc1_b                 # [., C] -> [., Ch], fp32 accumulate
     h   = dwconv3x3(h, pos_w) + pos_b + h   # zero padding outside the image
     out = gelu(h) @ fc2_w + fc2_b           # exact erf, fp32 accumulate
 
-`fused_mlp` launches `csrc/fused_mlp_fwd.cu` for a CUDA tensor (bf16 or
-fp32) and raises if it cannot; for a CPU tensor it runs
-`fused_mlp_reference`. The kernel replaces the TPU kernel
-`dformer_tpu/kernels/fused_mlp.py::_kernel`; the source note says what bounds
-it on the card and how it is laid out.
+`fused_mlp` is `FusedMLP.apply`, a `torch.autograd.Function`. For a CUDA
+tensor (bf16 or fp32) its forward launches `csrc/fused_mlp_fwd.cu` and its
+backward `csrc/fused_mlp_bwd.cu`, and either raises if it cannot; for a CPU
+tensor they run `fused_mlp_reference` and `fused_mlp_backward_reference`.
+The kernels replace the TPU kernels `_kernel` and `_bwd_kernel` of
+`dformer_tpu/kernels/fused_mlp.py`; the source notes say what bounds them on
+the card and how they are laid out. Only x and the eight parameters are
+saved for the backward, which recomputes the hidden tensors.
 
-Rounding points differ by design: the kernel keeps h in fp32 and rounds only
-the GELU output to the I/O dtype before fc2 (as the TPU kernel does), while
-the plain version rounds h to the I/O dtype before the depthwise conv (as
-the JAX reference does). In fp32 the two agree to summation order.
+Rounding points differ by design: the kernels keep the hidden tensors (h,
+and in the backward dh) in fp32 and round only the matmul operands to the
+I/O dtype (as the TPU kernels do), while the plain versions hold the hidden
+tensors in the I/O dtype (as the JAX references do). In fp32 the two agree
+to summation order. The backward kernel adds its weight gradients across
+blocks with fp32 atomics, so those eight outputs are reproducible to
+summation order only; dx is bit-for-bit reproducible.
 """
 
 import ctypes
@@ -24,13 +31,17 @@ import torch.nn.functional as F
 
 SOURCE = "dformer_torch/kernels/csrc/fused_mlp_fwd.cu"
 REPLACES = "dformer_tpu/kernels/fused_mlp.py:76"
+SOURCE_BWD = "dformer_torch/kernels/csrc/fused_mlp_bwd.cu"
+REPLACES_BWD = "dformer_tpu/kernels/fused_mlp.py:272"
 MAX_C = 576
 
 _bound = None
+_bound_bwd = None
 
 
 def _kernel():
-    """The ctypes entry point of the built library (built on first use)."""
+    """The ctypes entry points of the built forward library (built on first
+    use)."""
     global _bound
     if _bound is None:
         from dformer_torch.kernels.build import library
@@ -48,6 +59,24 @@ def _kernel():
         err.restype = ctypes.c_char_p
         _bound = (fn, splits, err)
     return _bound
+
+
+def _kernel_bwd():
+    """The ctypes entry points of the built backward library."""
+    global _bound_bwd
+    if _bound_bwd is None:
+        from dformer_torch.kernels.build import library
+
+        lib = library("fused_mlp_bwd")
+        fn = lib.dformer_fused_mlp_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        err = lib.dformer_cuda_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _bound_bwd = (fn, err)
+    return _bound_bwd
 
 
 def fused_mlp_reference(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w,
@@ -69,6 +98,66 @@ def fused_mlp_reference(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w,
     g = F.gelu(h)
     out = g.to(dt).float() @ fc2_w.to(dt).float() + fc2_b.float()
     return out.to(dt)
+
+
+def fused_mlp_backward_reference(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b,
+                                 fc2_w, fc2_b, g, eps: float = 1e-6):
+    """Plain PyTorch backward (follows the JAX `_bwd_xla`): the cotangent g
+    of the output -> gradients of the nine tensor arguments, in their
+    dtypes.
+
+    The forward is recomputed from x. The hidden tensors h1 and dhc are held
+    in x's dtype, every product accumulates in fp32, and the LayerNorm
+    backward runs in fp32."""
+    cd = x.dtype
+    C, Ch = fc1_w.shape
+    H, W = x.shape[1:3]
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    y0 = (xf - mean) * rstd
+    y = (y0 * ln_w.float() + ln_b.float()).to(cd)
+    w1, w2 = fc1_w.to(cd).float(), fc2_w.to(cd).float()
+    h1 = (y.float() @ w1 + fc1_b.float()).to(cd)
+
+    def dwconv(t, taps):  # NHWC depthwise 3x3, zero padding, in cd
+        kernel = taps.permute(2, 0, 1).unsqueeze(1)  # [Ch, 1, 3, 3]
+        out = F.conv2d(t.permute(0, 3, 1, 2), kernel, None, 1, 1, 1, Ch)
+        return out.permute(0, 2, 3, 1)
+
+    pw = pos_w.to(cd)
+    hc = (dwconv(h1, pw) + pos_b.to(cd) + h1).float()
+    inner = 0.5 * (1.0 + torch.erf(hc * 0.7071067811865476))
+    gact = (hc * inner).to(cd)
+    gp = inner + hc * (torch.exp(-0.5 * hc * hc) * 0.3989422804014327)
+
+    gout = g.to(cd)
+    go2d = gout.reshape(-1, C).float()
+    dfc2_w = (gact.reshape(-1, Ch).float().t() @ go2d).to(fc2_w.dtype)
+    dfc2_b = go2d.sum(0).to(fc2_b.dtype)
+    dhc = ((gout.float() @ w2.t()) * gp).to(cd)
+
+    # depthwise conv gradients: the input's is the correlation with the
+    # flipped taps; the taps' are nine shifted products summed in fp32
+    dconv_h1 = dwconv(dhc, pw.flip(0, 1))
+    h1_pad = F.pad(h1, (0, 0, 1, 1, 1, 1))
+    dpos_w = torch.stack([
+        (dhc.float() * h1_pad[:, k:k + H, l:l + W].float()).sum((0, 1, 2))
+        for k in range(3) for l in range(3)]).reshape(3, 3, Ch)
+    dpos_b = dhc.float().sum((0, 1, 2)).to(pos_b.dtype)
+    dh1 = (dhc + dconv_h1).reshape(-1, Ch).float()  # + the residual branch
+    dfc1_w = (y.reshape(-1, C).float().t() @ dh1).to(fc1_w.dtype)
+    dfc1_b = dh1.sum(0).to(fc1_b.dtype)
+
+    dy = (dh1 @ w1.t()).reshape(x.shape)
+    dln_w = (dy * y0).sum((0, 1, 2)).to(ln_w.dtype)
+    dln_b = dy.sum((0, 1, 2)).to(ln_b.dtype)
+    dyn = dy * ln_w.float()
+    dx = rstd * (dyn - dyn.mean(-1, keepdim=True)
+                 - y0 * (dyn * y0).mean(-1, keepdim=True))
+    return (dx.to(cd), dln_w, dln_b, dfc1_w, dfc1_b, dpos_w.to(pos_w.dtype),
+            dpos_b, dfc2_w, dfc2_b)
 
 
 def _check(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b):
@@ -103,20 +192,8 @@ def _check(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b):
                          f"C <= {MAX_C} and Ch % 32 == 0; got C={C}, Ch={Ch}")
 
 
-def fused_mlp(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
-              eps: float = 1e-6):
-    """Fused MLP block forward. On a CUDA tensor: the hand-written kernel,
-    counted in `fused_mlp.launches`, or an exception. On a CPU tensor: the
-    plain version.
-
-    fc1_w [C,Ch] and fc2_w [Ch,C] may be transposed views: the kernel reads
-    them in torch Linear layout ([Ch,C] and [C,Ch]), so the transposed view
-    of a Linear weight is passed without a copy."""
-    if x.device.type == "cpu":
-        return fused_mlp_reference(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b,
-                                   fc2_w, fc2_b, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp: unsupported device {x.device}")
+def _forward_cuda(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
+                  eps):
     _check(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b)
     fn, splits, err = _kernel()
     B, H, W, C = x.shape
@@ -143,4 +220,102 @@ def fused_mlp(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
     return out
 
 
+def _backward_cuda(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
+                   g, eps):
+    _check(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"fused_mlp backward: g must be {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}, got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}")
+    if not g.is_contiguous():
+        raise ValueError("fused_mlp backward: g must be contiguous NHWC")
+    fn, err = _kernel_bwd()
+    B, H, W, C = x.shape
+    Ch = fc1_w.shape[1]
+    w1 = fc1_w.t().contiguous()   # [Ch, C], for dy
+    w1t = fc1_w.contiguous()      # [C, Ch], for the fc1 recompute
+    w2 = fc2_w.t().contiguous()   # [C, Ch], for dg
+    dx = torch.empty_like(x)
+    # fp32 accumulators the blocks add into, zeroed on the kernel's stream;
+    # fc1_w's and fc2_w's are both [Ch, C]
+    sizes = [C, C, Ch * C, Ch, 9 * Ch, Ch, Ch * C, C]
+    acc = torch.zeros(sum(sizes), dtype=torch.float32, device=x.device)
+    dln_w, dln_b, dw1, dfc1_b, dpos_w, dpos_b, dw2, dfc2_b = acc.split(sizes)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), g.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                w1.data_ptr(), w1t.data_ptr(), fc1_b.data_ptr(),
+                pos_w.data_ptr(), pos_b.data_ptr(), w2.data_ptr(),
+                dx.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(),
+                dw1.data_ptr(), dfc1_b.data_ptr(), dpos_w.data_ptr(),
+                dpos_b.data_ptr(), dw2.data_ptr(), dfc2_b.data_ptr(),
+                B, H, W, C, Ch, eps, int(x.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_mlp_bwd launch failed: "
+                           f"{err(rc).decode()} (cudaError {rc})")
+    fused_mlp.backward_launches += 1
+    return (dx, dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype),
+            dw1.view(Ch, C).t().to(fc1_w.dtype), dfc1_b.to(fc1_b.dtype),
+            dpos_w.view(3, 3, Ch).to(pos_w.dtype), dpos_b.to(pos_b.dtype),
+            dw2.view(Ch, C).to(fc2_w.dtype), dfc2_b.to(fc2_b.dtype))
+
+
+def fused_mlp_backward(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w,
+                       fc2_b, g, eps: float = 1e-6):
+    """Backward of the fused MLP block: the cotangent g [B,H,W,C] (x's dtype,
+    contiguous) -> the gradients of the nine tensor arguments, in their
+    shapes and dtypes. On a CUDA tensor: the hand-written kernel, counted in
+    `fused_mlp.backward_launches`, or an exception. On a CPU tensor: the
+    plain version."""
+    if x.device.type == "cpu":
+        return fused_mlp_backward_reference(x, ln_w, ln_b, fc1_w, fc1_b,
+                                            pos_w, pos_b, fc2_w, fc2_b, g,
+                                            eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp: unsupported device {x.device}")
+    return _backward_cuda(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w,
+                          fc2_b, g, eps)
+
+
+class FusedMLP(torch.autograd.Function):
+    """The fused MLP block with its hand-written backward. On a CUDA tensor
+    both directions launch their kernel (counted in `fused_mlp.launches` and
+    `fused_mlp.backward_launches`) or raise; on a CPU tensor they run the
+    plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
+                eps=1e-6):
+        ctx.eps = eps
+        ctx.save_for_backward(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b,
+                              fc2_w, fc2_b)
+        if x.device.type == "cpu":
+            return fused_mlp_reference(x, ln_w, ln_b, fc1_w, fc1_b, pos_w,
+                                       pos_b, fc2_w, fc2_b, eps)
+        if x.device.type != "cuda":
+            raise ValueError(f"fused_mlp: unsupported device {x.device}")
+        return _forward_cuda(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b,
+                             fc2_w, fc2_b, eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return (*fused_mlp_backward(*ctx.saved_tensors, g.contiguous(),
+                                    ctx.eps), None)
+
+
+def fused_mlp(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
+              eps: float = 1e-6):
+    """Fused MLP block, differentiable in its nine tensor arguments.
+
+    x [B,H,W,C] in bf16 or fp32; fc1_w [C,Ch], pos_w [3,3,Ch], fc2_w [Ch,C]
+    in x's dtype; ln_w, ln_b, fc1_b, pos_b, fc2_b in fp32. fc1_w and fc2_w
+    may be transposed views: the kernels read them in torch Linear layout
+    ([Ch,C] and [C,Ch]), so the transposed view of a Linear weight is passed
+    without a copy."""
+    return FusedMLP.apply(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w,
+                          fc2_b, eps)
+
+
 fused_mlp.launches = 0
+fused_mlp.backward_launches = 0

@@ -2,7 +2,9 @@
 `dformer_tpu/models/builder.py`, ham path).
 
 `EncoderDecoder.forward` returns full-resolution NHWC logits, bilinearly
-upsampled with align_corners=False.
+upsampled with align_corners=False. In train mode (`model.train()`) the
+BatchNorms use batch statistics, DropPath and dropout draw from the
+`generator` argument, and the NMF draws fresh bases from it.
 """
 
 from typing import Optional
@@ -19,7 +21,8 @@ class EncoderDecoder(nn.Module):
     def __init__(self, backbone: str = "DFormer-Large", decoder: str = "ham",
                  num_classes: int = 40, decoder_embed_dim: int = 512,
                  drop_path_rate: float = 0.1, aux_rate: float = 0.0,
-                 bn_eps: float = 1e-3, dtype: Optional[torch.dtype] = None):
+                 bn_eps: float = 1e-3, bn_momentum: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if backbone not in VARIANTS:
             raise NotImplementedError(
@@ -40,7 +43,7 @@ class EncoderDecoder(nn.Module):
         self.decode_head = LightHamHead(
             in_channels=spec["dims"][1:], in_index=(1, 2, 3),
             channels=decoder_embed_dim, num_classes=num_classes,
-            bn_eps=bn_eps, dtype=dtype)
+            bn_eps=bn_eps, bn_momentum=bn_momentum, dtype=dtype)
 
     def encode(self, rgb, modal_x, generator=None):
         return self.encoder_backbone(rgb, modal_x, generator)
@@ -57,6 +60,13 @@ class EncoderDecoder(nn.Module):
         features = self.encode(rgb, modal_x, generator)
         return self.decode(features, rgb.shape[1:3], bases, generator)
 
+    def forward_with_aux(self, rgb, modal_x,
+                         bases: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None):
+        """(logits, aux logits). The ham decoder with aux_rate 0 attaches no
+        aux head (the constructor refuses the others), so aux is None."""
+        return self.forward(rgb, modal_x, bases, generator), None
+
 
 def build_model(cfg, device="cuda", dtype: Optional[torch.dtype] = None
                 ) -> EncoderDecoder:
@@ -72,5 +82,5 @@ def build_model(cfg, device="cuda", dtype: Optional[torch.dtype] = None
         decoder_embed_dim=cfg.get("decoder_embed_dim", 512),
         drop_path_rate=0.1 if drop_path_rate is None else drop_path_rate,
         aux_rate=cfg.get("aux_rate", 0.0), bn_eps=cfg.get("bn_eps", 1e-3),
-        dtype=dtype)
+        bn_momentum=cfg.get("bn_momentum", 0.1), dtype=dtype)
     return model.to(device)

@@ -3,7 +3,9 @@
 
 concat stages 2-4 resized to 1/8 -> 1x1 squeeze ConvModule -> Hamburger
 (1x1 in -> NMF2D multiplicative updates -> 1x1+BN out, residual relu) ->
-1x1 align ConvModule -> dropout + 1x1 classifier. All NMF math runs in fp32
+1x1 align ConvModule -> dropout + 1x1 classifier. In training the NMF takes
+6 steps from freshly drawn bases with the one-step gradient; in eval 7 steps
+from seeded bases. All NMF math runs in fp32
 (its updates are ratios and precision-sensitive); on the card it needs
 `torch.backends.cuda.matmul.allow_tf32 = False`, which `entry.build` sets.
 """
@@ -19,28 +21,44 @@ from dformer_torch.models.nn import Conv2d, ConvBNReLU, Dropout
 from dformer_torch.ops.resize import resize_bilinear
 
 
-def nmf2d(x, bases, steps: int = 7):
-    """Non-negative matrix factorisation refinement (eval: 7 steps).
+def nmf2d(x, bases, train: bool = False):
+    """Non-negative matrix factorisation refinement (6 steps in training, 7
+    in eval).
 
     x: [B, N, D] non-negative features; bases: [B, D, R] initial bases.
-    Returns the rank-R reconstruction [B, N, D], in fp32."""
+    Returns the rank-R reconstruction [B, N, D], in fp32.
+
+    Training gradient: the iterated updates run on `x.detach()`, and only
+    the last coefficient update and the reconstruction are differentiated
+    (HamNet's one-step gradient)."""
     x = x.float()
     bases = bases.float()
     eps = 1e-6
 
-    def update_coef(bases_, coef):
-        numer = torch.bmm(x, bases_)
+    def update_coef(x_, bases_, coef):
+        numer = torch.bmm(x_, bases_)
         denom = torch.bmm(coef, torch.bmm(bases_.transpose(1, 2), bases_))
         return coef * numer / (denom + eps)
 
-    coef = torch.softmax(torch.bmm(x, bases), dim=-1)
-    for _ in range(steps):
-        coef = update_coef(bases, coef)
-        numer = torch.bmm(x.transpose(1, 2), coef)
+    x_iter = x.detach() if train else x
+    coef = torch.softmax(torch.bmm(x_iter, bases), dim=-1)
+    for _ in range(6 if train else 7):
+        coef = update_coef(x_iter, bases, coef)
+        numer = torch.bmm(x_iter.transpose(1, 2), coef)
         denom = torch.bmm(bases, torch.bmm(coef.transpose(1, 2), coef))
         bases = bases * numer / (denom + eps)
-    coef = update_coef(bases, coef)
+    coef = update_coef(x, bases, coef)
     return torch.bmm(coef, bases.transpose(1, 2))
+
+
+def uniform_bases(generator: torch.Generator, b: int, d: int, r: int,
+                  device) -> torch.Tensor:
+    """Fresh uniform NMF bases from `generator`, L2-normalised over the
+    channel dim, on `device`: what a training forward draws."""
+    bases = torch.rand((b, d, r), generator=generator,
+                       device=generator.device)
+    bases = bases / torch.linalg.norm(bases, dim=1, keepdim=True)
+    return bases.to(device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -68,20 +86,32 @@ class Hamburger(nn.Module):
     relu(x + out)."""
 
     def __init__(self, ham_channels: int = 512, md_r: int = 64,
-                 bn_eps: float = 1e-3, dtype: Optional[torch.dtype] = None):
+                 bn_eps: float = 1e-3, bn_momentum: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.ham_channels, self.md_r = ham_channels, md_r
         self.ham_in = Conv2d(ham_channels, ham_channels, 1, dtype=dtype)
         self.ham_out = ConvBNReLU(ham_channels, ham_channels, 1, with_bn=True,
-                                  with_relu=False, bn_eps=bn_eps, dtype=dtype)
+                                  with_relu=False, bn_eps=bn_eps,
+                                  bn_momentum=bn_momentum, dtype=dtype)
 
-    def forward(self, x, bases: Optional[torch.Tensor] = None):
-        """bases [B, ham_channels, md_r]; None = `seeded_bases`."""
+    def forward(self, x, bases: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """bases [B, ham_channels, md_r] overrides the draw; None = fresh
+        `uniform_bases` from `generator` in training, `seeded_bases` in
+        eval."""
         B, H, W, D = x.shape
         enjoy = F.relu(self.ham_in(x))
-        if bases is None:
+        if bases is None and self.training:
+            if generator is None:
+                raise ValueError("Hamburger in training needs NMF bases or "
+                                 "a torch.Generator to draw them from")
+            bases = uniform_bases(generator, B, self.ham_channels, self.md_r,
+                                  x.device)
+        elif bases is None:
             bases = seeded_bases(B, self.ham_channels, self.md_r, x.device)
-        flat = nmf2d(enjoy.reshape(B, H * W, self.ham_channels), bases)
+        flat = nmf2d(enjoy.reshape(B, H * W, self.ham_channels), bases,
+                     train=self.training)
         enjoy = flat.reshape(B, H, W, self.ham_channels).to(x.dtype)
         enjoy = self.ham_out(enjoy)
         return F.relu(x + enjoy)
@@ -94,15 +124,15 @@ class LightHamHead(nn.Module):
                  in_index: Sequence[int] = (1, 2, 3), channels: int = 512,
                  ham_channels: int = 512, num_classes: int = 40,
                  dropout_ratio: float = 0.1, align_corners: bool = False,
-                 bn_eps: float = 1e-3, dtype: Optional[torch.dtype] = None):
+                 bn_eps: float = 1e-3, bn_momentum: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_index = tuple(in_index)
         self.align_corners = align_corners
-        self.squeeze = ConvBNReLU(sum(in_channels), ham_channels, 1,
-                                  bn_eps=bn_eps, dtype=dtype)
-        self.hamburger = Hamburger(ham_channels, bn_eps=bn_eps, dtype=dtype)
-        self.align = ConvBNReLU(ham_channels, channels, 1, bn_eps=bn_eps,
-                                dtype=dtype)
+        bn = dict(bn_eps=bn_eps, bn_momentum=bn_momentum, dtype=dtype)
+        self.squeeze = ConvBNReLU(sum(in_channels), ham_channels, 1, **bn)
+        self.hamburger = Hamburger(ham_channels, **bn)
+        self.align = ConvBNReLU(ham_channels, channels, 1, **bn)
         self.dropout = Dropout(dropout_ratio)
         self.conv_seg = Conv2d(channels, num_classes, 1, dtype=dtype)
 
@@ -112,7 +142,7 @@ class LightHamHead(nn.Module):
         size = feats[0].shape[1:3]
         feats = [resize_bilinear(f, size, self.align_corners) for f in feats]
         x = self.squeeze(torch.cat(feats, dim=-1))
-        x = self.hamburger(x, bases)
+        x = self.hamburger(x, bases, generator)
         x = self.align(x)
         x = self.dropout(x, generator)
         return self.conv_seg(x)

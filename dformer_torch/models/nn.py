@@ -88,22 +88,36 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the channel (last) dim on the running
-    statistics, in fp32. The training-mode update (unbiased running
-    variance, SyncBN) belongs with the train step."""
+    """BatchNorm over the channel (last) dim of an NHWC tensor, in fp32.
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    Eval: the running statistics. Training: the batch mean and the two-pass
+    biased batch variance (clamped at 0) normalise, and the running
+    statistics move by `momentum` toward the batch mean and the *unbiased*
+    batch variance. Statistics across devices (SyncBN) are not ported."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
     def forward(self, x):
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        y = (x.float() - self.running_mean) * scale + self.bias
-        return y.to(x.dtype)
+        xf = x.float()
+        if self.training:
+            mean = xf.mean((0, 1, 2))
+            var = (xf - mean).square().mean((0, 1, 2)).clamp(min=0.0)
+            n = x.shape[0] * x.shape[1] * x.shape[2]
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(
+                    var * (n / max(n - 1, 1)), alpha=m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return ((xf - mean) * scale + self.bias).to(x.dtype)
 
 
 class GELU(nn.Module):
@@ -159,12 +173,14 @@ class ConvBNReLU(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 1,
                  with_bn: bool = True, with_relu: bool = True,
                  conv_bias: Optional[bool] = None, bn_eps: float = 1e-3,
+                 bn_momentum: float = 0.1,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         use_bias = conv_bias if conv_bias is not None else not with_bn
         self.conv = Conv2d(in_ch, out_ch, kernel_size, 1, kernel_size // 2,
                            bias=use_bias, dtype=dtype)
-        self.bn = BatchNorm(out_ch, eps=bn_eps) if with_bn else None
+        self.bn = (BatchNorm(out_ch, eps=bn_eps, momentum=bn_momentum)
+                   if with_bn else None)
         self.with_relu = with_relu
 
     def forward(self, x):

@@ -1,16 +1,20 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels (fused-MLP forward and backward) against their
+plain PyTorch versions, on the card.
 
 Imports no JAX, so that it runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Every test skips where torch sees no CUDA card (the kernel has no CPU mode).
+Every test skips where torch sees no CUDA card (the kernels have no CPU
+mode).
 """
 
 import pytest
 import torch
 
-from dformer_torch.kernels.fused_mlp import fused_mlp, fused_mlp_reference
+from dformer_torch.kernels.fused_mlp import (fused_mlp,
+                                             fused_mlp_backward_reference,
+                                             fused_mlp_reference)
 from dformer_torch.models.encoder import MLPBlock
 
 
@@ -83,3 +87,63 @@ def test_fused_mlp_rejects_what_the_kernel_does_not_take():
     args[3] = args[3].float()  # fc1_w in the wrong dtype
     with pytest.raises(ValueError, match="fc1_w"):
         fused_mlp(*args)
+
+
+# (B, H, W, C, ratio): between them the two dtypes reach every tile shape of
+# the backward kernel (8, 4 and 1 rows; 3 to 18 channel columns per lane),
+# with ragged tiles at the right and bottom edges
+BWD_SHAPES = [(2, 40, 48, 96, 8), (1, 7, 13, 48, 8), (1, 9, 11, 144, 4),
+              (1, 10, 9, 288, 4), (2, 15, 20, 576, 4)]
+BWD_NAMES = ["dx", "dln_w", "dln_b", "dfc1_w", "dfc1_b", "dpos_w", "dpos_b",
+             "dfc2_w", "dfc2_b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_fused_mlp_backward_kernel_matches_reference(shape, dtype):
+    _card()
+    args = [a.requires_grad_() for a in _inputs(*shape, dtype)]
+    g = torch.randn(args[0].shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(9)
+                    ).to(dtype)
+    n0 = fused_mlp.backward_launches
+    got = torch.autograd.grad(fused_mlp(*args), args, g)
+    torch.cuda.synchronize()
+    assert fused_mlp.backward_launches == n0 + 1
+    want = fused_mlp_backward_reference(*(a.detach() for a in args), g)
+    for name, a, b, arg in zip(BWD_NAMES, got, want, args):
+        assert a.shape == arg.shape == b.shape and a.dtype == arg.dtype, name
+        # fp32: summation order only (dx per pixel; the weight gradients
+        # over every pixel). bf16: the plain version rounds h1 and dhc to
+        # bf16 where the kernel keeps fp32
+        tol = 3e-2 if dtype == torch.bfloat16 else \
+            (1e-4 if name == "dx" else 1e-3)
+        scale = max(b.float().abs().max().item(), 1e-3)
+        err = (a.float() - b.float()).abs().max().item() / scale
+        assert err <= tol, (name, err)
+    # dx needs no sum across blocks: bit-equal from run to run
+    again = torch.autograd.grad(fused_mlp(*args), args, g)
+    assert torch.equal(again[0], got[0])
+
+
+@pytest.mark.cuda
+def test_mlp_block_backward_runs_the_kernel_on_the_card():
+    _card()
+    block = MLPBlock(96, 4, dtype=torch.float32).cuda()
+    x = torch.randn(2, 9, 11, 96, device="cuda", requires_grad=True)
+    n0 = fused_mlp.backward_launches
+    block(x).square().sum().backward()
+    assert fused_mlp.backward_launches == n0 + 1
+    got = {n: p.grad.cpu() for n, p in block.named_parameters()}
+    got["x"] = x.grad.cpu()
+    block = block.cpu()
+    block.zero_grad()
+    xc = x.detach().cpu().requires_grad_()
+    block(xc).square().sum().backward()
+    want = {n: p.grad for n, p in block.named_parameters()}
+    want["x"] = xc.grad
+    for name, b in want.items():
+        assert got[name].shape == b.shape and got[name].dtype == b.dtype
+        assert (got[name] - b).abs().max().item() <= \
+            1e-3 * max(b.abs().max().item(), 1e-3), name
