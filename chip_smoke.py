@@ -256,10 +256,13 @@ def phase_kernels(smi):
 def phase_kernels_bwd(smi):
     """The backward kernel at the same shapes: all nine outputs against the
     plain backward, times and bound, and a second run on the same inputs
-    (dx must be bit-equal; the weight gradients are added with atomics)."""
+    (all nine outputs must be bit-equal). Each of the call's four launches
+    timed by CUDA events, the blocks per SM of K1 and K3, and torch.matmul
+    of the two weight-gradient products as K3's yardstick."""
     import torch
 
     from dformer_torch.kernels.fused_mlp import (
+        backward_occupancy, backward_stage_ms, card_backward_plan,
         fused_mlp_backward, fused_mlp_backward_reference)
 
     rows, misses = [], []
@@ -277,6 +280,9 @@ def phase_kernels_bwd(smi):
                   f"{name} {out}: {a.dtype} {tuple(a.shape)} vs plain "
                   f"{b.dtype} {tuple(b.shape)}")
             check(bool(torch.isfinite(a).all()), f"{name} {out}: non-finite")
+            check(torch.equal(a, a2),
+                  f"{name} {out}: differs between two runs on the same "
+                  f"inputs")
             scale = max(b.float().abs().max().item(), 1e-3)
             diff = (a.float() - b.float()).abs().max().item()
             abs_err = max(abs_err, diff)
@@ -286,18 +292,33 @@ def phase_kernels_bwd(smi):
                 BWD_FP32_LIMIT_DX if out == "dx" else BWD_FP32_LIMIT_W)
             if not errs[out] <= limits[out]:
                 misses.append(f"{name} {out}: {errs[out]} > {limits[out]}")
-        check(torch.equal(got[0], again[0]),
-              f"{name}: dx differs between two runs on the same inputs")
+        del got, again, want
         bound, bound_by, t_ops, t_bytes = mlp_bwd_bound(
             B, H, W, C, Ch, torch.tensor([], dtype=dtype).element_size())
+        stages = [backward_stage_ms(*args, g) for _ in range(7)]
+        stage_ms = [statistics.median(s[k] for s in stages) for k in range(4)]
+        # K3's yardstick: the same two [Ch,N]x[N,C] products in one library
+        # call each, on operands of the same shapes and dtype
+        a_w = torch.randn(B * H * W, Ch, device="cuda").to(dtype)
+        b_w = torch.randn(B * H * W, C, device="cuda").to(dtype)
+        wgrad_library_ms = 2 * time_ms(lambda: torch.matmul(a_w.t(), b_w),
+                                       reps=10, calls=3)
+        del a_w, b_w
+        occ = backward_occupancy(C, dtype)
+        plan = card_backward_plan(B, H, W, C, Ch, dtype)
         row = {"phase": "kernels", "kernel": "fused_mlp_bwd", "shape": name,
                "B": B, "H": H, "W": W, "C": C, "Ch": Ch,
                "dtype": str(dtype).replace("torch.", ""),
                "launches_per_step": n, "max_rel_err": errs,
                "max_abs_err": abs_err, "limit": limits,
-               "rerun_max_abs_diff": rerun, "dx_bit_equal": True,
+               "rerun_max_abs_diff": rerun, "bit_equal_rerun": True,
                "ms": time_ms(lambda: fused_mlp_backward(*args, g),
                              reps=10, calls=3),
+               "stage_ms": dict(zip(("k1_hidden", "k2_ln", "k3_wgrad",
+                                     "k4_reduce"), stage_ms)),
+               "wgrad_library_ms": wgrad_library_ms,
+               "occupancy": occ,
+               "plan": plan._asdict(),
                "plain_ms": time_ms(
                    lambda: fused_mlp_backward_reference(*args, g),
                    reps=5, warmup=1, calls=2),
@@ -559,31 +580,40 @@ def kernel_summary(rows, rows_bwd, launches, train_launches):
     """One entry per kernel: times per forward or per train step (each
     shape's time times its launches, summed over the main-path shapes).
     `launches` are those of the serving path's run for the forward kernel
-    and of the train path's counted steps for the backward kernel."""
+    and of the train path's counted steps for the backward kernel; a
+    backward call is four CUDA launches (K1-K4), whose times per step are
+    listed, with torch.matmul of K3's two products beside K3."""
     from dformer_torch.kernels.fused_mlp import (REPLACES, REPLACES_BWD,
                                                  SOURCE, SOURCE_BWD)
 
+    def total(rows, per, key, sub=None):
+        return sum((r[key] if sub is None else r[key][sub]) * r[per]
+                   for r in rows if r[per])
+
     def entry_of(name, source, replaces, rows, per, n_launches, extra):
         main = [r for r in rows if r[per]]
-
-        def total(key):
-            return sum(r[key] * r[per] for r in main)
-
-        ops, nbytes = total("ops_ms"), total("bytes_ms")
+        ops, nbytes = total(rows, per, "ops_ms"), total(rows, per, "bytes_ms")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n_launches,
                 "max_abs_err": max(r["max_abs_err"] for r in main),
-                "ms": total("ms"), "plain_ms": total("plain_ms"),
+                "ms": total(rows, per, "ms"),
+                "plain_ms": total(rows, per, "plain_ms"),
                 "bound_ms": max(ops, nbytes),
                 "bound_by": "operations" if ops >= nbytes else "bytes",
                 "library_ms": None, **extra}
 
+    per = "launches_per_step"
+    stages = {k: total(rows_bwd, per, "stage_ms", k)
+              for k in rows_bwd[0]["stage_ms"]}
     return {"kernels": [
         entry_of("fused_mlp_fwd", SOURCE, REPLACES, rows,
                  "launches_per_forward", launches,
                  {"launches_in_train_steps": train_launches[0]}),
-        entry_of("fused_mlp_bwd", SOURCE_BWD, REPLACES_BWD, rows_bwd,
-                 "launches_per_step", train_launches[1], {})]}
+        entry_of("fused_mlp_bwd", SOURCE_BWD, REPLACES_BWD, rows_bwd, per,
+                 train_launches[1],
+                 {"stage_ms": stages,
+                  "wgrad_library_ms": total(rows_bwd, per,
+                                            "wgrad_library_ms")})]}
 
 
 def main():

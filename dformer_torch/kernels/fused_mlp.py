@@ -19,12 +19,19 @@ Rounding points differ by design: the kernels keep the hidden tensors (h,
 and in the backward dh) in fp32 and round only the matmul operands to the
 I/O dtype (as the TPU kernels do), while the plain versions hold the hidden
 tensors in the I/O dtype (as the JAX references do). In fp32 the two agree
-to summation order. The backward kernel adds its weight gradients across
-blocks with fp32 atomics, so those eight outputs are reproducible to
-summation order only; dx is bit-for-bit reproducible.
+to summation order.
+
+One backward call is four CUDA launches (K1-K4 in the source note), cut
+into blocks by the plan `backward_plan` computes here; the wrapper
+allocates the scratch the plan sizes. Blocks write partial sums to slots of
+their own and the last launch adds them in a fixed order, with no atomics,
+so all nine gradients are bit-for-bit reproducible from run to run.
+`fused_mlp.backward_launches` counts calls, not launches.
 """
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -69,14 +76,122 @@ def _kernel_bwd():
 
         lib = library("fused_mlp_bwd")
         fn = lib.dformer_fused_mlp_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 27 + [ctypes.c_int] * 5
+                       + [ctypes.c_float] + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        occ = lib.dformer_fused_mlp_bwd_occupancy
+        occ.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        occ.restype = ctypes.c_int
         err = lib.dformer_cuda_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        _bound_bwd = (fn, err)
+        _bound_bwd = (fn, occ, err)
     return _bound_bwd
+
+
+class BackwardPlan(NamedTuple):
+    """How one backward call is cut into blocks (see `backward_plan`).
+
+    K1 (bwd_hidden) takes TH x 8 pixel tiles, `tile_rows` x TILE_W, over a
+    grid of tiles_h x tiles_w per image, and splits the Ch / 32 hidden chunks
+    of a tile over `nsplit` blocks of `chunks_per_split` chunks (the last
+    may hold fewer). K2 (bwd_ln) takes `ln_pixels` consecutive pixels per
+    block, `ln_blocks` blocks. K3 (bwd_wgrad) cuts the N = B*H*W pixels into
+    `slices` slices of `slice_len` (a multiple of WGRAD_K; the last is
+    ragged)."""
+    tile_rows: int
+    tiles_h: int
+    tiles_w: int
+    chunks_per_split: int
+    nsplit: int
+    ln_pixels: int
+    ln_blocks: int
+    slice_len: int
+    slices: int
+
+
+TILE_W = 8
+HIDDEN_CHUNK = 32
+WGRAD_TILE = (256, 96)   # K3 output tile: hidden rows x channels
+WGRAD_K = 32             # K3 pixels per stage
+K1_PROLOGUE_CHUNKS = 2   # a K1 block's halo staging and LayerNorm cost
+                         # about two hidden chunks (measured on the card)
+LN_BLOCKS_PER_SM = 4
+K3_BLOCKS_PER_SM = 2
+K3_MIN_SLICE = 512
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _k1_chunks_per_split(tiles, nchunks, slots):
+    """Hidden chunks per K1 block. Of the counts that give at least `slots`
+    blocks (every SM busy; all counts if none does), the one that minimises
+    the modelled time: rounds of `slots` concurrent blocks, each costing its
+    chunks and its prologue; on a tie, the fewer blocks."""
+    def cost(cps):
+        return (_cdiv(tiles * _cdiv(nchunks, cps), slots)
+                * (K1_PROLOGUE_CHUNKS + cps))
+    fill = [c for c in range(nchunks, 0, -1)
+            if tiles * _cdiv(nchunks, c) >= slots]
+    return min(fill or range(nchunks, 0, -1), key=cost)
+
+
+def backward_plan(B, H, W, C, Ch, tile_rows, k1_blocks_per_sm,
+                  sms) -> BackwardPlan:
+    """The launch plan of one backward call at this shape, for K1 at
+    `tile_rows` rows per tile and `k1_blocks_per_sm`, on a card of `sms`
+    SMs (`card_backward_plan` takes all three from the built kernel and the
+    card). Small maps split K1's hidden chunks over blocks
+    (`_k1_chunks_per_split`); K2 takes 8 to 64 pixels per block, for about
+    LN_BLOCKS_PER_SM blocks per SM; K3 takes enough pixel slices for about
+    K3_BLOCKS_PER_SM blocks per SM, each slice at least K3_MIN_SLICE
+    pixels."""
+    tiles_h, tiles_w = _cdiv(H, tile_rows), _cdiv(W, TILE_W)
+    nchunks = Ch // HIDDEN_CHUNK
+    cps = _k1_chunks_per_split(B * tiles_h * tiles_w, nchunks,
+                               sms * k1_blocks_per_sm)
+    N = B * H * W
+    ln_pixels = min(max(N // (LN_BLOCKS_PER_SM * sms) // 8 * 8, 8), 64)
+    out_tiles = 2 * _cdiv(Ch, WGRAD_TILE[0]) * _cdiv(C, WGRAD_TILE[1])
+    slices = min(max(_cdiv(K3_BLOCKS_PER_SM * sms, out_tiles), 1),
+                 max(N // K3_MIN_SLICE, 1))
+    slice_len = _cdiv(_cdiv(N, slices), WGRAD_K) * WGRAD_K
+    return BackwardPlan(tile_rows, tiles_h, tiles_w, cps, _cdiv(nchunks, cps),
+                        ln_pixels, _cdiv(N, ln_pixels), slice_len,
+                        _cdiv(N, slice_len))
+
+
+def backward_occupancy(C, dtype, device="cuda"):
+    """{tile_rows, k1_blocks_per_sm, k3_blocks_per_sm, k1_smem_bytes,
+    k1_fc1_buffers} of the backward at this width and dtype: K1's tile
+    height as csrc/fused_mlp_bwd.cu chooses it, and what the card reports
+    for the kernels built for it."""
+    _, occ, err = _kernel_bwd()
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        rc = occ(C, int(dtype == torch.bfloat16), out)
+    if rc != 0:
+        raise RuntimeError(f"fused_mlp_bwd occupancy query failed: "
+                           f"{err(rc).decode()} (cudaError {rc})")
+    return dict(zip(("tile_rows", "k1_blocks_per_sm", "k3_blocks_per_sm",
+                     "k1_smem_bytes", "k1_fc1_buffers"), out))
+
+
+@functools.lru_cache(maxsize=256)
+def card_backward_plan(B, H, W, C, Ch, dtype, device="cuda") -> BackwardPlan:
+    """`backward_plan` with K1's tile height and blocks per SM from the
+    built kernel and the SM count of the card; computed once per shape,
+    dtype and device, so that a call's host work is one lookup."""
+    occ = backward_occupancy(C, dtype, device)
+    if occ["k1_blocks_per_sm"] < 1:
+        raise RuntimeError(f"fused_mlp_bwd: K1 does not fit an SM at C={C}, "
+                           f"{dtype}: {occ}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return backward_plan(B, H, W, C, Ch, occ["tile_rows"],
+                         occ["k1_blocks_per_sm"], sms)
 
 
 def fused_mlp_reference(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w,
@@ -221,7 +336,7 @@ def _forward_cuda(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
 
 
 def _backward_cuda(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
-                   g, eps):
+                   g, eps, times=None):
     _check(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"fused_mlp backward: g must be {x.dtype} "
@@ -229,35 +344,67 @@ def _backward_cuda(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
                          f"{tuple(g.shape)} on {g.device}")
     if not g.is_contiguous():
         raise ValueError("fused_mlp backward: g must be contiguous NHWC")
-    fn, err = _kernel_bwd()
+    fn, _, err = _kernel_bwd()
     B, H, W, C = x.shape
     Ch = fc1_w.shape[1]
-    w1 = fc1_w.t().contiguous()   # [Ch, C], for dy
-    w1t = fc1_w.contiguous()      # [C, Ch], for the fc1 recompute
-    w2 = fc2_w.t().contiguous()   # [C, Ch], for dg
+    dt = x.dtype
+    bf16 = dt == torch.bfloat16
+    plan = card_backward_plan(B, H, W, C, Ch, dt, x.device)
+    N = B * H * W
+    # only the weight layouts this dtype's K1 reads (csrc/fused_mlp_bwd.cu):
+    # both read fc1 as [Ch, C] (a view of the Linear weight); bf16 also fc2
+    # as [Ch, C], fp32 also fc1 as [C, Ch] and fc2 as [C, Ch] (a view)
+    w1 = fc1_w.t().contiguous()
+    w1t, w2 = (None, None) if bf16 else (fc1_w.contiguous(),
+                                         fc2_w.t().contiguous())
+    w2t = fc2_w.contiguous() if bf16 else None
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+
     dx = torch.empty_like(x)
-    # fp32 accumulators the blocks add into, zeroed on the kernel's stream;
-    # fc1_w's and fc2_w's are both [Ch, C]
-    sizes = [C, C, Ch * C, Ch, 9 * Ch, Ch, Ch * C, C]
-    acc = torch.zeros(sum(sizes), dtype=torch.float32, device=x.device)
-    dln_w, dln_b, dw1, dfc1_b, dpos_w, dpos_b, dw2, dfc2_b = acc.split(sizes)
+    dln_w, dln_b, dfc2_b = empty(C), empty(C), empty(C)
+    dfc1_b, dpos_b = empty(Ch), empty(Ch)
+    dw1, dw2 = empty(Ch, C, dtype=dt), empty(Ch, C, dtype=dt)
+    dpos_w = empty(3, 3, Ch, dtype=dt)
+    # scratch, every element written by the launches before it is read
+    y = empty(N, C, dtype=dt)
+    gact, dh1c = empty(N, Ch, dtype=dt), empty(N, Ch, dtype=dt)
+    dy_part = empty(plan.nsplit, N, C)
+    hid_part = empty(B * plan.tiles_h * plan.tiles_w, 11, Ch)
+    ln_part = empty(plan.ln_blocks, 3, C)
+    w_part = empty(2, plan.slices, Ch, C)
+    ptrs = [x, g, ln_w, ln_b, w1, w1t, fc1_b, pos_w, pos_b, w2, w2t, dx,
+            dln_w, dln_b, dw1, dfc1_b, dpos_w, dpos_b, dw2, dfc2_b, y, gact,
+            dh1c, dy_part, hid_part, ln_part, w_part]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), g.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-                w1.data_ptr(), w1t.data_ptr(), fc1_b.data_ptr(),
-                pos_w.data_ptr(), pos_b.data_ptr(), w2.data_ptr(),
-                dx.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(),
-                dw1.data_ptr(), dfc1_b.data_ptr(), dpos_w.data_ptr(),
-                dpos_b.data_ptr(), dw2.data_ptr(), dfc2_b.data_ptr(),
-                B, H, W, C, Ch, eps, int(x.dtype == torch.bfloat16), stream)
+        rc = fn(*(None if t is None else t.data_ptr() for t in ptrs), B, H,
+                W, C, Ch, eps, plan.tile_rows, plan.chunks_per_split,
+                plan.nsplit, plan.ln_pixels, plan.slice_len, plan.slices,
+                int(bf16), stream, times)
     if rc != 0:
         raise RuntimeError(f"fused_mlp_bwd launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")
     fused_mlp.backward_launches += 1
-    return (dx, dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype),
-            dw1.view(Ch, C).t().to(fc1_w.dtype), dfc1_b.to(fc1_b.dtype),
-            dpos_w.view(3, 3, Ch).to(pos_w.dtype), dpos_b.to(pos_b.dtype),
-            dw2.view(Ch, C).to(fc2_w.dtype), dfc2_b.to(fc2_b.dtype))
+    return (dx, dln_w, dln_b, dw1.t(), dfc1_b, dpos_w, dpos_b, dw2, dfc2_b)
+
+
+def backward_stage_ms(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w,
+                      fc2_b, g, eps: float = 1e-6):
+    """One backward call on the card with each of its four launches (K1
+    bwd_hidden, K2 bwd_ln, K3 bwd_wgrad, K4 bwd_reduce) timed by CUDA
+    events; waits for the call. Returns the four times in ms.
+
+    The events are recorded on the stream between the launches, inside the
+    C entry point, so the four times are on the same clock as a call's
+    CUDA-event time and need no profiler session; a torch.profiler trace
+    gives the same split by kernel name (`trace_forward --train`) but adds
+    its own overhead to the calls it records."""
+    times = (ctypes.c_float * 4)()
+    _backward_cuda(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
+                   g, eps, times)
+    return list(times)
 
 
 def fused_mlp_backward(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w,

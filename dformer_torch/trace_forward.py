@@ -69,10 +69,12 @@ def main():
     if args.out:
         prof.export_chrome_trace(f"{args.out}/{what}_trace.json")
 
-    # kernel events: device_type CUDA, duration = their time on the card
+    # kernel events: device_type CUDA, duration = their time on the card;
+    # user annotations (the optimizer step's range) are spans, not kernels
     per_kernel = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not ev.is_user_annotation):
             ms, n = per_kernel.get(ev.name, (0.0, 0))
             per_kernel[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3,
                                    n + 1)

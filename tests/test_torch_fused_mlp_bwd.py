@@ -1,20 +1,27 @@
 """The port's fused-MLP backward on the CPU: the plain backward against the
 JAX package's XLA backward (fp32) and its Pallas backward kernel (bf16,
 interpret mode), the `FusedMLP` autograd function against autograd through
-the plain forward, and a port `MLPBlock`'s gradients against the JAX
-`MLPBlock`'s. The CUDA kernel is held against the plain backward in
+the plain forward, a port `MLPBlock`'s gradients against the JAX
+`MLPBlock`'s, and the CUDA backward's launch plan: its decomposition
+replayed in plain PyTorch, and its coverage of every pixel and hidden
+channel. The CUDA kernel is held against the plain backward in
 tests/test_torch_cuda.py and chip_smoke.py."""
+
+import itertools
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
 
-from dformer_torch.kernels.fused_mlp import (FusedMLP,
+from dformer_torch.kernels import fused_mlp as tfm
+from dformer_torch.kernels.fused_mlp import (FusedMLP, backward_plan,
                                              fused_mlp_backward_reference,
                                              fused_mlp_reference)
+from dformer_torch.models.encoder import VARIANTS
 from dformer_torch.models.encoder import MLPBlock as TMLPBlock
 from dformer_tpu.kernels import fused_mlp as fm
 from dformer_tpu.models.encoder import MLPBlock as JMLPBlock
@@ -183,3 +190,149 @@ def test_mlp_block_gradients_match_jax():
         np.testing.assert_allclose(
             got[name], want[name], rtol=1e-4,
             atol=1e-5 * max(np.abs(want[name]).max(), 1.0), err_msg=name)
+
+
+def _replay_plan(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b, g,
+                 plan, eps=1e-6):
+    """The CUDA backward's decomposition in plain PyTorch, fp32: K1 per
+    hidden split (y, gact and dh1 materialised; dy per split; per-tile sums
+    of dpos_w, dpos_b and dfc1_b), K2 per block of ln_pixels pixels, K3 per
+    pixel slice, and K4 adding every partial buffer in index order."""
+    B, H, W, C = x.shape
+    Ch = fc1_w.shape[1]
+    N = B * H * W
+    mean = x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((x - mean).square().mean(-1, keepdim=True) + eps)
+    y0 = (x - mean) * rstd
+    y = y0 * ln_w + ln_b
+    h1 = y @ fc1_w + fc1_b
+
+    def dwconv(t, taps):
+        out = F.conv2d(t.permute(0, 3, 1, 2),
+                       taps.permute(2, 0, 1).unsqueeze(1), None, 1, 1, 1, Ch)
+        return out.permute(0, 2, 3, 1)
+
+    hc = dwconv(h1, pos_w) + pos_b + h1
+    cdf = 0.5 * (1.0 + torch.erf(hc * 0.7071067811865476))
+    gact = hc * cdf
+    dhc = (g @ fc2_w.t()) * (cdf + hc * torch.exp(-0.5 * hc * hc)
+                             * 0.3989422804014327)
+    dh1 = dhc + dwconv(dhc, pos_w.flip(0, 1))
+
+    def in_order(parts):  # K4: a partial buffer summed over its leading index
+        total = torch.zeros_like(parts[0])
+        for part in parts:
+            total = total + part
+        return total
+
+    # K1: dy per hidden split; per-tile sums of the per-channel gradients
+    span = plan.chunks_per_split * tfm.HIDDEN_CHUNK
+    dy = in_order([dh1[..., s * span:(s + 1) * span]
+                   @ fc1_w[:, s * span:(s + 1) * span].t()
+                   for s in range(plan.nsplit)])
+    h1_pad = F.pad(h1, (0, 0, 1, 1, 1, 1))
+    per_px = torch.stack(
+        [dhc * h1_pad[:, k:k + H, l:l + W] for k in range(3) for l in range(3)]
+        + [dhc, dh1], 3)                                   # [B,H,W,11,Ch]
+    th = plan.tile_rows
+    hid = [per_px[b, r:r + th, c:c + tfm.TILE_W].sum((0, 1))
+           for b in range(B) for r in range(0, plan.tiles_h * th, th)
+           for c in range(0, plan.tiles_w * tfm.TILE_W, tfm.TILE_W)]
+    hid = in_order(hid)
+    # K2: dx per pixel; per-block sums of dln_w, dln_b, dfc2_b
+    dyn = dy * ln_w
+    dx = rstd * (dyn - dyn.mean(-1, keepdim=True)
+                 - y0 * (dyn * y0).mean(-1, keepdim=True))
+    per_ln = torch.stack([dy * y0, dy, g], -2).reshape(N, 3, C)
+    ln = in_order([per_ln[i:i + plan.ln_pixels].sum(0)
+                   for i in range(0, plan.ln_blocks * plan.ln_pixels,
+                                  plan.ln_pixels)])
+    # K3: both weight products per pixel slice
+    flat = [t.reshape(N, -1) for t in (gact, g, dh1, y)]
+    w = in_order([torch.stack([flat[0][i:i + plan.slice_len].t()
+                               @ flat[1][i:i + plan.slice_len],
+                               flat[2][i:i + plan.slice_len].t()
+                               @ flat[3][i:i + plan.slice_len]])
+                  for i in range(0, plan.slices * plan.slice_len,
+                                 plan.slice_len)])
+    return (dx, ln[0], ln[1], w[1].t(), hid[10], hid[:9].reshape(3, 3, Ch),
+            hid[9], w[0], ln[2])
+
+
+@pytest.mark.parametrize("shape,slices", [((1, 7, 13, 16, 4), 1),
+                                          ((2, 23, 29, 8, 8), 2)])
+def test_backward_plan_decomposition_matches_reference(shape, slices):
+    """Ragged shapes (N not a multiple of 16, H and W not multiples of the
+    tile) whose hidden chunks split over blocks, the second also over two
+    pixel slices in K3: the plan's decomposition gives the plain backward's
+    nine outputs."""
+    B, H, W, C, r = shape
+    x, ps, g = _inputs(*shape, seed=4)
+    # the scalar K1's 8-row tiles at C <= 144, one block per SM, 132 SMs
+    plan = backward_plan(B, H, W, C, C * r, 8, 1, 132)
+    assert plan.nsplit > 1 and (B * H * W) % 16 and plan.slices == slices
+    assert H % plan.tile_rows and W % tfm.TILE_W
+    args = [torch.from_numpy(a) for a in (x, *ps, g)]
+    got = _replay_plan(*args, plan)
+    want = fused_mlp_backward_reference(*args)
+    for name, a, b in zip(NAMES, got, want):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(
+            a.numpy(), b.numpy(), rtol=0,
+            atol=1e-5 * max(b.abs().max().item(), 1.0), err_msg=name)
+
+
+def _main_path_shapes():
+    """(B, H, W, C, Ch) of every fused-MLP call of DFormer-Large at bs8,
+    480x640: mlp and mlp_e2 of each stage."""
+    spec = VARIANTS["DFormer-Large"]
+    out = []
+    for i in range(4):
+        h, w = 480 // (4 * 2 ** i), 640 // (4 * 2 ** i)
+        c, r = spec["dims"][i], spec["mlp_ratios"][i]
+        out += [(8, h, w, c, c * r), (8, h, w, c // 2, c // 2 * r)]
+    return out
+
+
+def _covers_once(n, starts, length):
+    """Ranges [s, s + length) clipped to [0, n) cover it exactly once, and
+    none is empty."""
+    count = np.zeros(n, np.int64)
+    for s in starts:
+        assert s < n
+        count[s:s + length] += 1
+    return bool((count == 1).all())
+
+
+# the 8 main-path shapes and the card tests' BWD_SHAPES
+# (tests/test_torch_cuda.py)
+PLAN_SHAPES = _main_path_shapes() + [
+    (B, H, W, C, C * r) for B, H, W, C, r in
+    [(2, 40, 48, 96, 8), (1, 7, 13, 48, 8), (1, 9, 11, 144, 4),
+     (1, 10, 9, 288, 4), (2, 15, 20, 576, 4)]]
+
+
+@pytest.mark.parametrize("tile_rows", [1, 2, 4, 8])
+def test_backward_plan_covers_every_pixel_and_channel_once(tile_rows):
+    """At each K1 tile height the kernels have, one or two K1 blocks per SM,
+    and the SM counts of an H100 SXM (132) and PCIe (114)."""
+    for (B, H, W, C, Ch), k1_blocks, sms in itertools.product(
+            PLAN_SHAPES, (1, 2), (132, 114)):
+        plan = backward_plan(B, H, W, C, Ch, tile_rows, k1_blocks, sms)
+        th, N = plan.tile_rows, B * H * W
+        assert th == tile_rows
+        # K1: the tiles of an image, and the hidden chunks over the splits
+        assert _covers_once(H, range(0, plan.tiles_h * th, th), th)
+        assert _covers_once(W, range(0, plan.tiles_w * tfm.TILE_W,
+                                     tfm.TILE_W), tfm.TILE_W)
+        span = plan.chunks_per_split * tfm.HIDDEN_CHUNK
+        assert _covers_once(Ch, range(0, plan.nsplit * span, span), span)
+        # K2 blocks and K3 slices over the N pixels
+        assert plan.ln_pixels % 8 == 0 and 8 <= plan.ln_pixels <= 64
+        assert _covers_once(N, range(0, plan.ln_blocks * plan.ln_pixels,
+                                     plan.ln_pixels), plan.ln_pixels)
+        assert plan.slice_len % tfm.WGRAD_K == 0
+        assert _covers_once(N, range(0, plan.slices * plan.slice_len,
+                                     plan.slice_len), plan.slice_len)
+        # grid limits the C entry point checks
+        assert B * plan.nsplit <= 65535 and 2 * plan.slices <= 65535
