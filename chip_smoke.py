@@ -11,7 +11,9 @@ Phases, each printing JSON lines:
   3. kernels     - each kernel (fused-MLP forward and backward) against its
                    plain PyTorch version at the shapes of the main path
                    (DFormer-L, 480x640, bs8, bf16) and at one fp32 shape;
-                   kernel, plain and bound times; the backward run twice
+                   kernel, plain and bound times, occupancy; both kernels
+                   run twice (bit-equal); torch.matmul of the products as
+                   a yardstick
   4. slice       - DFormer-Large + LightHamHead answers 3 bs8 480x640
                    requests through entry.infer; launch counts per forward;
                    ms per forward from 10 more forwards
@@ -218,15 +220,23 @@ def phase_build():
 
 def phase_kernels(smi):
     """Every fused-MLP shape of the main path in bf16, plus one fp32 shape:
-    kernel vs plain version, times and bound. Returns the per-shape rows."""
+    kernel vs plain version, a second run on the same inputs (bit-equal),
+    times and bound, the kernel's plan and occupancy, and torch.matmul of
+    its two products over the B*H*W pixels (no halo) as their yardstick.
+    Returns the per-shape rows."""
     import torch
 
-    from dformer_torch.kernels.fused_mlp import fused_mlp, fused_mlp_reference
+    from dformer_torch.kernels.fused_mlp import (card_forward_plan,
+                                                 forward_occupancy, fused_mlp,
+                                                 fused_mlp_reference)
 
     rows, misses = [], []
     for i, (name, B, H, W, C, Ch, n, dtype) in enumerate(kernel_cases()):
         args = mlp_inputs(B, H, W, C, Ch, dtype, seed=i)
-        got = fused_mlp(*args).float()
+        got = fused_mlp(*args)
+        check(torch.equal(got, fused_mlp(*args)),
+              f"{name}: differs between two runs on the same inputs")
+        got = got.float()
         want = fused_mlp_reference(*args).float()
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
@@ -235,11 +245,24 @@ def phase_kernels(smi):
         limit = FP32_LIMIT if dtype == torch.float32 else BF16_LIMIT_REL * scale
         bound, bound_by, t_ops, t_bytes = mlp_bound(
             B, H, W, C, Ch, torch.tensor([], dtype=dtype).element_size())
+        plan = card_forward_plan(B, H, W, C, Ch, dtype)
+        # the products' yardstick: y @ fc1_w and g @ fc2_w as one library
+        # call each, on operands of the kernel's shapes and dtype
+        y = torch.randn(B * H * W, C, device="cuda").to(dtype)
+        g = torch.randn(B * H * W, Ch, device="cuda").to(dtype)
+        products_library_ms = (
+            time_ms(lambda: torch.matmul(y, args[3]), reps=10)
+            + time_ms(lambda: torch.matmul(g, args[7]), reps=10))
+        del y, g
         row = {"phase": "kernels", "kernel": "fused_mlp_fwd", "shape": name,
                "B": B, "H": H, "W": W, "C": C, "Ch": Ch,
                "dtype": str(dtype).replace("torch.", ""),
                "launches_per_forward": n, "max_abs_err": err,
                "limit": limit, "plain_max_abs": scale,
+               "bit_equal_rerun": True,
+               "plan": plan._asdict(),
+               "occupancy": forward_occupancy(C, dtype, plan.tile_cols),
+               "products_library_ms": products_library_ms,
                "ms": time_ms(lambda: fused_mlp(*args)),
                "plain_ms": time_ms(lambda: fused_mlp_reference(*args)),
                "bound_ms": bound, "bound_by": bound_by,
@@ -582,7 +605,8 @@ def kernel_summary(rows, rows_bwd, launches, train_launches):
     `launches` are those of the serving path's run for the forward kernel
     and of the train path's counted steps for the backward kernel; a
     backward call is four CUDA launches (K1-K4), whose times per step are
-    listed, with torch.matmul of K3's two products beside K3."""
+    listed, with torch.matmul of K3's two products beside K3; beside the
+    forward, torch.matmul of its two products."""
     from dformer_torch.kernels.fused_mlp import (REPLACES, REPLACES_BWD,
                                                  SOURCE, SOURCE_BWD)
 
@@ -608,7 +632,9 @@ def kernel_summary(rows, rows_bwd, launches, train_launches):
     return {"kernels": [
         entry_of("fused_mlp_fwd", SOURCE, REPLACES, rows,
                  "launches_per_forward", launches,
-                 {"launches_in_train_steps": train_launches[0]}),
+                 {"launches_in_train_steps": train_launches[0],
+                  "products_library_ms": total(rows, "launches_per_forward",
+                                               "products_library_ms")}),
         entry_of("fused_mlp_bwd", SOURCE_BWD, REPLACES_BWD, rows_bwd, per,
                  train_launches[1],
                  {"stage_ms": stages,

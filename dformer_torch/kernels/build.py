@@ -35,10 +35,10 @@ def _nvcc() -> str:
     return found
 
 
-def _compile(source: Path, target: Path) -> None:
+def _compile(source: Path, target: Path, defines=()) -> None:
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(target), str(source)]
+           *(f"-D{d}" for d in defines), "-o", str(target), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     # ptxas -v: registers, shared memory and spills of every instantiation
     target.with_suffix(".log").write_text(proc.stdout + proc.stderr)
@@ -47,24 +47,27 @@ def _compile(source: Path, target: Path) -> None:
                            f"{proc.stderr[-4000:]}")
 
 
-def library(name: str) -> ctypes.CDLL:
+def library(name: str, defines=()) -> ctypes.CDLL:
     """Load `csrc/<name>.cu` as a shared library, compiling it first if no
-    build of this exact source exists. Raises if the build fails."""
-    if name in _libs:
-        return _libs[name]
+    build of this exact source and these preprocessor `defines` exists.
+    Raises if the build fails."""
+    key = (name, *defines)
+    if key in _libs:
+        return _libs[key]
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(defines).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     target = BUILD_DIR / f"lib{name}_{digest}.so"
     if not target.exists():
         t0 = time.perf_counter()
         tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-        _compile(source, tmp)
+        _compile(source, tmp, defines)
         os.replace(tmp, target)
         os.replace(tmp.with_suffix(".log"), target.with_suffix(".log"))
-        build_seconds[name] = time.perf_counter() - t0
-    _libs[name] = ctypes.CDLL(str(target))
-    return _libs[name]
+        build_seconds[" ".join(key)] = time.perf_counter() - t0
+    _libs[key] = ctypes.CDLL(str(target))
+    return _libs[key]
 
 
 def build_all() -> dict:

@@ -4,7 +4,11 @@ and backward.
     y   = LayerNorm(x)                      # fp32 stats, eps 1e-6
     h   = y @ fc1_w + fc1_b                 # [., C] -> [., Ch], fp32 accumulate
     h   = dwconv3x3(h, pos_w) + pos_b + h   # zero padding outside the image
-    out = gelu(h) @ fc2_w + fc2_b           # exact erf, fp32 accumulate
+    out = gelu(h) @ fc2_w + fc2_b           # fp32 accumulate
+
+The plain versions and the fp32 kernels take the exact-erf GELU; the bf16
+forward kernel takes the TPU kernel's clamped polynomial erf (within 7.7e-4
+of it, under bf16 rounding).
 
 `fused_mlp` is `FusedMLP.apply`, a `torch.autograd.Function`. For a CUDA
 tensor (bf16 or fp32) its forward launches `csrc/fused_mlp_fwd.cu` and its
@@ -14,6 +18,12 @@ The kernels replace the TPU kernels `_kernel` and `_bwd_kernel` of
 `dformer_tpu/kernels/fused_mlp.py`; the source notes say what bounds them on
 the card and how they are laid out. Only x and the eight parameters are
 saved for the backward, which recomputes the hidden tensors.
+
+One forward call is the kernel's launch, after one that writes
+LayerNorm(x) in bf16 (bf16 only) and before one that adds the hidden
+splits' fp32 partial sums in a fixed order when the plan `forward_plan`
+splits the hidden chunks of a tile over blocks (small maps);
+`fused_mlp.launches` counts calls.
 
 Rounding points differ by design: the kernels keep the hidden tensors (h,
 and in the backward dh) in fp32 and round only the matmul operands to the
@@ -53,19 +63,25 @@ def _kernel():
     if _bound is None:
         from dformer_torch.kernels.build import library
 
-        lib = library("fused_mlp_fwd")
-        fn = lib.dformer_fused_mlp_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        splits = lib.dformer_fused_mlp_splits
-        splits.argtypes = [ctypes.c_int] * 5
-        splits.restype = ctypes.c_int
-        err = lib.dformer_cuda_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _bound = (fn, splits, err)
+        _bound = bind_forward(library("fused_mlp_fwd"))
     return _bound
+
+
+def bind_forward(lib):
+    """The ctypes entry points of a forward library (`_kernel` binds the
+    plain build; `kernels/fwd_phases.py` an instrumented one)."""
+    fn = lib.dformer_fused_mlp_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    occ = lib.dformer_fused_mlp_fwd_occupancy
+    occ.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    err = lib.dformer_cuda_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, occ, err
 
 
 def _kernel_bwd():
@@ -117,6 +133,8 @@ WGRAD_TILE = (256, 96)   # K3 output tile: hidden rows x channels
 WGRAD_K = 32             # K3 pixels per stage
 K1_PROLOGUE_CHUNKS = 2   # a K1 block's halo staging and LayerNorm cost
                          # about two hidden chunks (measured on the card)
+FWD_PROLOGUE_CHUNKS = 1  # a forward block's staging of its halo tile and
+                         # first weights, taken as one chunk (not measured)
 LN_BLOCKS_PER_SM = 4
 K3_BLOCKS_PER_SM = 2
 K3_MIN_SLICE = 512
@@ -126,14 +144,15 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def _k1_chunks_per_split(tiles, nchunks, slots):
-    """Hidden chunks per K1 block. Of the counts that give at least `slots`
-    blocks (every SM busy; all counts if none does), the one that minimises
-    the modelled time: rounds of `slots` concurrent blocks, each costing its
-    chunks and its prologue; on a tie, the fewer blocks."""
+def _chunks_per_split(tiles, nchunks, slots, prologue):
+    """Hidden chunks per block of a kernel that walks a tile's hidden chunks
+    after a prologue costing `prologue` chunks. Of the counts that give at
+    least `slots` blocks (every SM busy; all counts if none does), the one
+    that minimises the modelled time: rounds of `slots` concurrent blocks,
+    each costing its chunks and its prologue; on a tie, the fewer blocks."""
     def cost(cps):
         return (_cdiv(tiles * _cdiv(nchunks, cps), slots)
-                * (K1_PROLOGUE_CHUNKS + cps))
+                * (prologue + cps))
     fill = [c for c in range(nchunks, 0, -1)
             if tiles * _cdiv(nchunks, c) >= slots]
     return min(fill or range(nchunks, 0, -1), key=cost)
@@ -145,14 +164,14 @@ def backward_plan(B, H, W, C, Ch, tile_rows, k1_blocks_per_sm,
     `tile_rows` rows per tile and `k1_blocks_per_sm`, on a card of `sms`
     SMs (`card_backward_plan` takes all three from the built kernel and the
     card). Small maps split K1's hidden chunks over blocks
-    (`_k1_chunks_per_split`); K2 takes 8 to 64 pixels per block, for about
+    (`_chunks_per_split`); K2 takes 8 to 64 pixels per block, for about
     LN_BLOCKS_PER_SM blocks per SM; K3 takes enough pixel slices for about
     K3_BLOCKS_PER_SM blocks per SM, each slice at least K3_MIN_SLICE
     pixels."""
     tiles_h, tiles_w = _cdiv(H, tile_rows), _cdiv(W, TILE_W)
     nchunks = Ch // HIDDEN_CHUNK
-    cps = _k1_chunks_per_split(B * tiles_h * tiles_w, nchunks,
-                               sms * k1_blocks_per_sm)
+    cps = _chunks_per_split(B * tiles_h * tiles_w, nchunks,
+                            sms * k1_blocks_per_sm, K1_PROLOGUE_CHUNKS)
     N = B * H * W
     ln_pixels = min(max(N // (LN_BLOCKS_PER_SM * sms) // 8 * 8, 8), 64)
     out_tiles = 2 * _cdiv(Ch, WGRAD_TILE[0]) * _cdiv(C, WGRAD_TILE[1])
@@ -162,6 +181,82 @@ def backward_plan(B, H, W, C, Ch, tile_rows, k1_blocks_per_sm,
     return BackwardPlan(tile_rows, tiles_h, tiles_w, cps, _cdiv(nchunks, cps),
                         ln_pixels, _cdiv(N, ln_pixels), slice_len,
                         _cdiv(N, slice_len))
+
+
+class ForwardPlan(NamedTuple):
+    """How one forward call is cut into blocks (see `forward_plan`): pixel
+    tiles of `tile_rows` x `tile_cols` over a grid of tiles_h x tiles_w per
+    image; the ceil(Ch / chunk) hidden chunks of a tile split over `nsplit`
+    blocks of `chunks_per_split` chunks (the last may hold fewer). With
+    nsplit above 1 each block writes an fp32 partial sum of fc2, and a
+    second launch adds them in split order."""
+    tile_rows: int
+    tile_cols: int
+    tiles_h: int
+    tiles_w: int
+    chunk: int
+    chunks_per_split: int
+    nsplit: int
+
+
+def forward_tile_cols(W, widest):
+    """The forward's tile width for a map W pixels wide, of 8 and the
+    widest the kernel has at this C: the fewer halo columns computed per
+    tile row, ceil(W / cols) * (cols + 2); on a tie, the wider."""
+    return min(sorted({8, widest}, reverse=True),
+               key=lambda cols: _cdiv(W, cols) * (cols + 2))
+
+
+def forward_plan(B, H, W, C, Ch, tile_rows, tile_cols, chunk, blocks_per_sm,
+                 sms) -> ForwardPlan:
+    """The launch plan of one forward call at this shape, for the kernel's
+    `tile_rows` x `tile_cols` tiles and hidden `chunk` at `blocks_per_sm`,
+    on a card of `sms` SMs (`card_forward_plan` takes them from the built
+    kernel and the card). Small maps split the hidden chunks over blocks
+    (`_chunks_per_split`, each block's prologue the halo LayerNorm)."""
+    tiles_h, tiles_w = _cdiv(H, tile_rows), _cdiv(W, tile_cols)
+    nchunks = _cdiv(Ch, chunk)
+    cps = _chunks_per_split(B * tiles_h * tiles_w, nchunks,
+                            sms * blocks_per_sm, FWD_PROLOGUE_CHUNKS)
+    return ForwardPlan(tile_rows, tile_cols, tiles_h, tiles_w, chunk, cps,
+                       _cdiv(nchunks, cps))
+
+
+FWD_OCCUPANCY_KEYS = ("tile_rows", "tile_cols", "chunk", "threads",
+                      "smem_bytes", "blocks_per_sm", "registers",
+                      "local_bytes")
+
+
+def forward_occupancy(C, dtype, tile_cols=0, device="cuda"):
+    """{tile_rows, tile_cols, chunk, threads, smem_bytes, blocks_per_sm,
+    registers, local_bytes} of the forward kernel csrc/fused_mlp_fwd.cu runs
+    at this width and dtype with tiles `tile_cols` wide (0: the widest it
+    has): its tile, hidden channels per chunk, block size and dynamic shared
+    memory, and what the card reports for it (resident blocks per SM,
+    registers and spill bytes per thread)."""
+    _, occ, err = _kernel()
+    out = (ctypes.c_int * len(FWD_OCCUPANCY_KEYS))()
+    with torch.cuda.device(device):
+        rc = occ(C, int(dtype == torch.bfloat16), tile_cols, out)
+    if rc != 0:
+        raise RuntimeError(f"fused_mlp_fwd occupancy query failed: "
+                           f"{err(rc).decode()} (cudaError {rc})")
+    return dict(zip(FWD_OCCUPANCY_KEYS, out))
+
+
+@functools.lru_cache(maxsize=256)
+def card_forward_plan(B, H, W, C, Ch, dtype, device="cuda") -> ForwardPlan:
+    """`forward_plan` with the tile width from `forward_tile_cols`, the tile
+    height, chunk and blocks per SM of the built kernel at that width, and
+    the SM count of the card; computed once per shape, dtype and device."""
+    widest = forward_occupancy(C, dtype, 0, device)["tile_cols"]
+    occ = forward_occupancy(C, dtype, forward_tile_cols(W, widest), device)
+    if occ["blocks_per_sm"] < 1:
+        raise RuntimeError(f"fused_mlp_fwd: the kernel does not fit an SM at "
+                           f"C={C}, {dtype}: {occ}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return forward_plan(B, H, W, C, Ch, occ["tile_rows"], occ["tile_cols"],
+                        occ["chunk"], occ["blocks_per_sm"], sms)
 
 
 def backward_occupancy(C, dtype, device="cuda"):
@@ -310,16 +405,18 @@ def _check(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b):
 def _forward_cuda(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
                   eps):
     _check(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b)
-    fn, splits, err = _kernel()
+    fn, _, err = _kernel()
     B, H, W, C = x.shape
     Ch = fc1_w.shape[1]
+    plan = card_forward_plan(B, H, W, C, Ch, x.dtype, x.device)
     w1 = fc1_w.t().contiguous()  # [Ch, C]
     w2 = fc2_w.t().contiguous()  # [C, Ch]
     out = torch.empty_like(x)
     # small maps split the hidden channels over blocks: fp32 partial sums
-    nsplit = splits(B, H, W, C, Ch)
-    partial = (torch.empty((nsplit, B, H, W, C), dtype=torch.float32,
-                           device=x.device) if nsplit > 1 else None)
+    partial = (torch.empty((plan.nsplit, B, H, W, C), dtype=torch.float32,
+                           device=x.device) if plan.nsplit > 1 else None)
+    # bf16: LayerNorm(x), written by a launch of its own before the kernel
+    y = torch.empty_like(x) if x.dtype == torch.bfloat16 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
@@ -327,7 +424,10 @@ def _forward_cuda(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
                 pos_b.data_ptr(), w2.data_ptr(), fc2_b.data_ptr(),
                 out.data_ptr(),
                 None if partial is None else partial.data_ptr(),
-                B, H, W, C, Ch, eps, int(x.dtype == torch.bfloat16), stream)
+                None if y is None else y.data_ptr(),
+                B, H, W, C, Ch, eps, plan.tile_rows, plan.tile_cols,
+                plan.chunks_per_split, plan.nsplit,
+                int(x.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"fused_mlp_fwd launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")

@@ -82,7 +82,7 @@ def main():
                    for name, (ms, n) in per_kernel.items()), reverse=True)
     kernel_ms = sum(ms for ms, _, _ in rows)
     mlp_ms = sum(ms for ms, _, key in rows if "fused_mlp" in key
-                 or "reduce_splits" in key)
+                 or "reduce_splits" in key or "layernorm_rows" in key)
     mlp_bwd_ms = sum(ms for ms, _, key in rows if "fused_mlp_bwd" in key)
     print(json.dumps({
         "batch": BATCH, f"host_ms_per_{what}": wall_ms,

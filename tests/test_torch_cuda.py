@@ -42,8 +42,17 @@ def _inputs(B, H, W, C, r, dtype, seed=0):
 
 
 # (B, H, W, C, ratio): a large map (one split), ragged small maps (hidden
-# channels split over blocks), and the wide-C tile shape
-SHAPES = [(2, 40, 48, 96, 8), (1, 7, 13, 48, 8), (2, 15, 20, 576, 4)]
+# channels split over blocks), the wide-C tile shape, and every width the
+# four variants (Tiny, Small, Base, Large) put through the kernel, at the
+# ratio of their stage (8, 8, 4, 4); the last, Ch = 96, leaves the bf16
+# kernel's last 64-channel chunk half full. tests/test_torch_fused_mlp_fwd.py
+# keeps the same list (FWD_CARD_SHAPES) for its CPU test of the plan.
+SHAPES = [
+    (2, 40, 48, 96, 8), (1, 7, 13, 48, 8), (2, 15, 20, 576, 4),
+    (2, 24, 32, 16, 8), (2, 24, 32, 32, 8), (2, 12, 16, 64, 8),
+    (1, 9, 11, 64, 4), (1, 12, 16, 128, 8), (1, 10, 9, 128, 4),
+    (1, 10, 9, 144, 4), (2, 12, 16, 192, 8), (1, 15, 20, 256, 4),
+    (1, 10, 9, 288, 4), (1, 8, 10, 512, 4), (1, 9, 11, 32, 3)]
 
 
 @pytest.mark.cuda
@@ -62,6 +71,8 @@ def test_fused_mlp_kernel_matches_reference(shape, dtype):
     # output's magnitude)
     tol = 1e-4 if dtype == torch.float32 else 2e-2 * want.abs().max().item()
     assert (got - want).abs().max().item() <= tol
+    # no atomics: the hidden splits are added in a fixed order
+    assert torch.equal(fused_mlp(*args).float(), got)
 
 
 @pytest.mark.cuda
