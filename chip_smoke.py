@@ -26,6 +26,17 @@ Phases, each printing JSON lines:
   7. train_cpu_vs_card - one forward + backward of a narrow model in fp32 on
                    the card (both kernels) and on the CPU (plain versions):
                    loss and every parameter's gradient
+  8. eval        - entry.build_evaluator + Evaluator on synthetic val batches
+                   of DFormer-Large + LightHamHead: single scale bf16 (16
+                   images in batches of 4), MSF + flip bf16 (12) and fp32
+                   (8), sliding window under the SUNRGBD config (4 images of
+                   530x730 in batches of 2, 4 windows each); hists, metrics,
+                   MSF accumulators and launch counts checked; ms per image,
+                   whole and after the first group; the forward kernel
+                   against its plain version and timed at every stage map of
+                   both MSF + flip runs
+  9. eval_cpu_vs_card - MSF + flip of a narrow fp32 model on the card
+                   (kernel) and on the CPU (plain version): equal hists
 Then the kernel summary line, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; nothing is caught. Exits non-zero
 before printing any result when CUDA is unavailable.
@@ -80,6 +91,15 @@ TRAIN_NULL_GRAD = 3e-7
 NARROW = dict(dims=(32, 64, 128, 256), depths=(1, 1, 1, 2),
               num_heads=(1, 2, 4, 8), windows=(0, 7, 7, 7),
               mlp_ratios=(8, 8, 4, 4))
+# Evaluation: the MSF scales tools/eval.py takes for a config whose
+# eval_scale_array is [1], the val batch size, and the limits: each pixel's
+# MSF accumulator sums to 2 * len(scales) up to fp32 rounding of the
+# softmax sums; card (fp32 kernel) vs CPU (plain) accumulators of the narrow
+# model differ by summation order only.
+EVAL_SCALES = [0.5, 0.75, 1.0, 1.25, 1.5]
+EVAL_BATCH = 4
+EVAL_ACC_SUM_LIMIT = 1e-3
+EVAL_CPU_VS_CARD_ACC = 1e-4
 
 
 def emit(obj):
@@ -599,11 +619,248 @@ def phase_train_cpu_vs_card(smi):
           f"{len(skipped)} null-gradient leaves skipped")
 
 
-def kernel_summary(rows, rows_bwd, launches, train_launches):
+def _eval_mode(smi, name, cfg, dtype, n, batch, scales=None,
+               sliding=False):
+    """One eval mode through entry.build_evaluator on n synthetic images
+    in groups of `batch`: an untimed warm-up over one group, then the
+    counted and timed run. Returns (row, Counter of the (B, H, W, C, Ch) the
+    fused-MLP kernel saw in the timed run, groups in the timed run)."""
+    import collections
+
+    import torch
+
+    from dformer_torch import entry
+    from dformer_torch.data.loader import device_val_batches
+    from dformer_torch.kernels.fused_mlp import card_forward_plan, fused_mlp
+    from dformer_torch.models.encoder import MLPBlock
+
+    def run(ev, batches):
+        if scales is None:
+            return ev.evaluate(batches, save_hook=hook)
+        return ev.evaluate_msf(batches, scales, flip=cfg.eval_flip,
+                               save_hook=hook)
+
+    def hook(pred, batch):  # after each group, its labels on the host
+        labelled.append((batch["gt"][:pred.shape[0]] != cfg.background)
+                        .sum().item())
+        ends.append(time.perf_counter())
+
+    labelled, ends = [], []
+    ev, _ = entry.build_evaluator(cfg, dtype, "cuda", seed=0, sliding=sliding)
+    run(ev, device_val_batches(cfg, batch, "cuda", synthetic=True,
+                               n=min(n, batch)))
+    seen = collections.Counter()
+    forwards = []
+    handles = [m.register_forward_pre_hook(
+        lambda m, a: seen.update([tuple(a[0].shape)[:4] + (m.fc1.weight
+                                                           .shape[0],)]))
+        for m in ev.model.modules() if isinstance(m, MLPBlock)]
+    handles.append(ev.model.register_forward_hook(
+        lambda m, a, o: forwards.append(o.shape[0])))
+    acc_err = []
+    if scales is not None:  # each group's accumulator, checked after the run
+        msf_probs = ev.msf_probs
+
+        def recording(*a, **k):
+            acc = msf_probs(*a, **k)
+            acc_err.append((acc.sum(-1) - 2 * len(scales)).abs().amax())
+            return acc
+
+        ev.msf_probs = recording
+    batches = device_val_batches(cfg, batch, "cuda", synthetic=True, n=n)
+    labelled.clear()
+    torch.cuda.synchronize()
+    fused_mlp.launches = 0
+    t0 = time.perf_counter()
+    ends[:] = [t0]
+    m = run(ev, batches)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = fused_mlp.launches
+    for h in handles:
+        h.remove()
+    per_forward = sum(n_ for *_, n_ in mlp_shapes())
+    hw = (cfg.image_height, cfg.image_width)
+    groups = -(-n // batch)
+    want_forwards = groups * (2 * len(scales) if scales else 1)
+    (_, miou), (_, macc), (_, mf1) = (m.compute_iou(), m.compute_pixel_acc(),
+                                      m.compute_f1())
+    acc_err = max((e.item() for e in acc_err), default=None)
+    dt = dtype or torch.float32
+    group_ms = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+    # the groups after the first: the loader's start-up (its threads and
+    # the first group's data) stays in the first
+    steady = n - min(n, batch)
+    row = {"phase": "eval", "mode": name, "config": cfg.dataset_name,
+           "backbone": cfg.backbone, "num_classes": cfg.num_classes,
+           "dtype": str(dt).replace("torch.", ""), "images": n,
+           "batch": batch, "hw": list(hw), "scales": scales,
+           "flip": bool(scales and cfg.eval_flip), "sliding": sliding,
+           "crop": list(cfg.eval_crop_size) if sliding else None,
+           "forwards": len(forwards), "forward_batches": forwards,
+           "fused_mlp_launches": launches,
+           "fused_mlp_launches_per_forward": launches / max(len(forwards), 1),
+           "hist_sum": int(m.hist.sum()), "labelled_pixels": sum(labelled),
+           "mIoU": miou, "mAcc": macc, "mF1": mf1,
+           "msf_acc_sum_max_err": acc_err,
+           "ms": ms, "ms_per_image": ms / n, "img_per_s": n / ms * 1e3,
+           "group_ms": group_ms, "first_group_ms": group_ms[0],
+           "steady_images": steady,
+           "steady_ms_per_image": sum(group_ms[1:]) / steady,
+           "steady_img_per_s": steady / sum(group_ms[1:]) * 1e3,
+           "kernel_shapes": [
+               {"B": b, "H": h, "W": w, "C": c, "Ch": ch, "calls": k,
+                "plan": card_forward_plan(b, h, w, c, ch, dt)._asdict()}
+               for (b, h, w, c, ch), k in sorted(seen.items())],
+           "card": smi}
+    emit(row)
+    check(len(group_ms) == groups,
+          f"eval {name}: {len(group_ms)} groups, expected {groups}")
+    check(len(forwards) == want_forwards,
+          f"eval {name}: {len(forwards)} forwards, expected {want_forwards}")
+    check(launches == per_forward * len(forwards),
+          f"eval {name}: fused_mlp launched {launches} times in "
+          f"{len(forwards)} forwards, expected {per_forward} per forward")
+    check(row["hist_sum"] == row["labelled_pixels"] == n * hw[0] * hw[1],
+          f"eval {name}: hist sums to {row['hist_sum']}, labelled pixels "
+          f"{row['labelled_pixels']}")
+    check(all(np.isfinite(v) for v in (miou, macc, mf1)),
+          f"eval {name}: metrics {miou} {macc} {mf1}")
+    if scales is not None:
+        check(acc_err <= EVAL_ACC_SUM_LIMIT,
+              f"eval {name}: MSF accumulator sums off by {acc_err}")
+    del ev
+    torch.cuda.empty_cache()
+    return row, seen, groups
+
+
+def _eval_kernel(smi, run, seen, groups, dtype):
+    """The forward kernel at each stage map that an MSF + flip run gave it
+    (`seen`: (B, H, W, C, Ch) -> calls in `groups` groups): against its
+    plain version, bit-equal on rerun, timed, with its bound. Emits the
+    shapes and their sum per group; returns the shapes that missed their
+    limit."""
+    import torch
+
+    from dformer_torch.kernels.fused_mlp import fused_mlp, fused_mlp_reference
+
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    shapes, misses = [], []
+    for i, ((B, H, W, C, Ch), calls) in enumerate(sorted(seen.items())):
+        args = mlp_inputs(B, H, W, C, Ch, dtype, seed=300 + i)
+        got = fused_mlp(*args)
+        check(torch.equal(got, fused_mlp(*args)),
+              f"eval shape {(B, H, W, C)} {dtype}: differs between two runs")
+        check(bool(torch.isfinite(got).all()),
+              f"eval shape {(B, H, W, C)} {dtype}: non-finite output")
+        want = fused_mlp_reference(*args).float()
+        err = (got.float() - want).abs().max().item()
+        limit = FP32_LIMIT if dtype == torch.float32 else \
+            BF16_LIMIT_REL * want.abs().max().item()
+        bound, bound_by, t_ops, t_bytes = mlp_bound(B, H, W, C, Ch, itemsize)
+        shape = {"B": B, "H": H, "W": W, "C": C, "Ch": Ch,
+                 "calls_per_batch": calls / groups, "max_abs_err": err,
+                 "limit": limit, "bit_equal_rerun": True,
+                 "ms": time_ms(lambda: fused_mlp(*args), reps=10, calls=3),
+                 "bound_ms": bound, "bound_by": bound_by, "ops_ms": t_ops,
+                 "bytes_ms": t_bytes}
+        shapes.append(shape)
+        if not err <= limit:
+            misses.append(f"{(B, H, W, C)} {dtype}: {err} > {limit}")
+    per_batch = {k: sum(s[k] * s["calls_per_batch"] for s in shapes)
+                 for k in ("ms", "ops_ms", "bytes_ms")}
+    emit({"phase": "eval_kernel", "kernel": "fused_mlp_fwd", "run": run,
+          "dtype": str(dtype).replace("torch.", ""), "batch": EVAL_BATCH,
+          "shapes": shapes, "launches_per_batch":
+              sum(s["calls_per_batch"] for s in shapes),
+          "ms_per_batch": per_batch["ms"],
+          "bound_ms_per_batch": max(per_batch["ops_ms"],
+                                    per_batch["bytes_ms"]),
+          "bound_by": "operations" if per_batch["ops_ms"]
+          >= per_batch["bytes_ms"] else "bytes",
+          "max_abs_err": max(s["max_abs_err"] for s in shapes),
+          "card": smi})
+    return misses
+
+
+def phase_eval(smi):
+    """The eval path at full width (DFormer-Large + LightHamHead, weights
+    from seed 0, synthetic val data) in four modes, then the forward kernel
+    at every stage map of the bf16 and of the fp32 MSF + flip run. Every
+    mode runs two groups or more, so that the groups after the first give
+    a steady-state time. Returns the mode rows."""
+    import torch
+
+    from dformer_torch.configs import load_config
+
+    nyu = load_config("local_configs.NYUDepthv2.DFormer_Large")
+    sun = load_config("local_configs.SUNRGBD.DFormer_Large")
+    sun.image_height, sun.image_width = 530, 730  # crop stays 480x480
+    rows, misses = [], []
+    for name, cfg, dtype, n, batch, scales, sliding in (
+            ("single_bf16", nyu, torch.bfloat16, 16, EVAL_BATCH, None, False),
+            ("msf_flip_bf16", nyu, torch.bfloat16, 12, EVAL_BATCH,
+             EVAL_SCALES, False),
+            ("msf_flip_fp32", nyu, None, 8, EVAL_BATCH, EVAL_SCALES, False),
+            # 2 images of 4 windows each per forward
+            ("sliding_bf16", sun, torch.bfloat16, 4, 2, None, True)):
+        row, seen, groups = _eval_mode(smi, name, cfg, dtype, n, batch,
+                                       scales, sliding)
+        rows.append(row)
+        if scales is not None:
+            misses += _eval_kernel(smi, name, seen, groups,
+                                   dtype or torch.float32)
+    check(not misses, "kernel disagrees with its plain version at eval "
+          "shapes: " + "; ".join(misses))
+    return rows
+
+
+def phase_eval_cpu_vs_card(smi):
+    """MSF + flip (scales 0.5 and 1) of a narrow fp32 model over 2 images
+    of 64x96 through `entry.msf_group`, on the card through the kernel and
+    on the CPU through the plain version, same weights: equal hists,
+    accumulators within EVAL_CPU_VS_CARD_ACC."""
+    import torch
+
+    from dformer_torch import entry
+    from dformer_torch.models.encoder import VARIANTS
+
+    VARIANTS.setdefault("DFormer-Narrow", NARROW)
+    hw, scales, classes = (64, 96), [0.5, 1.0], 11
+    rng = np.random.RandomState(4)
+    rgb, modal = (torch.from_numpy(rng.randn(2, *hw, 3).astype(np.float32))
+                  for _ in range(2))
+    gt = torch.from_numpy(rng.randint(0, classes, (2, *hw)))
+    (hist_card, acc_card, n_card), (hist_cpu, acc_cpu, _) = (
+        entry.msf_group("DFormer-Narrow", classes, rgb, modal, gt, scales,
+                        True, device) for device in ("cuda", "cpu"))
+    diff = (acc_card - acc_cpu).abs().max().item()
+    top2 = acc_cpu.topk(2, dim=-1).values
+    near_ties = int(((top2[..., 0] - top2[..., 1]) < 2 * diff).sum())
+    n_mlp = sum(NARROW["depths"]) * 2 - 1
+    emit({"phase": "eval_cpu_vs_card", "model": "DFormer-Narrow+LightHamHead",
+          "images": 2, "hw": list(hw), "dtype": "float32", "scales": scales,
+          "flip": True, "hist_equal": bool(np.array_equal(hist_card,
+                                                          hist_cpu)),
+          "hist_sum": int(hist_card.sum()), "acc_max_abs_diff": diff,
+          "limit_acc": EVAL_CPU_VS_CARD_ACC,
+          "pixels_within_2x_diff_of_a_tie": near_ties,
+          "fused_mlp_launches_card": n_card, "card": smi})
+    check(n_card == 2 * len(scales) * n_mlp,
+          f"narrow eval: {n_card} launches on the card, expected "
+          f"{2 * len(scales) * n_mlp}")
+    check(diff <= EVAL_CPU_VS_CARD_ACC,
+          f"narrow eval: accumulators differ by {diff}")
+    check(np.array_equal(hist_card, hist_cpu),
+          "narrow eval: card and CPU hists differ")
+
+
+def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows):
     """One entry per kernel: times per forward or per train step (each
     shape's time times its launches, summed over the main-path shapes).
     `launches` are those of the serving path's run for the forward kernel
-    and of the train path's counted steps for the backward kernel; a
+    (its launches in the train steps and in each timed eval run beside
+    them) and of the train path's counted steps for the backward kernel; a
     backward call is four CUDA launches (K1-K4), whose times per step are
     listed, with torch.matmul of K3's two products beside K3; beside the
     forward, torch.matmul of its two products."""
@@ -633,6 +890,8 @@ def kernel_summary(rows, rows_bwd, launches, train_launches):
         entry_of("fused_mlp_fwd", SOURCE, REPLACES, rows,
                  "launches_per_forward", launches,
                  {"launches_in_train_steps": train_launches[0],
+                  "launches_in_eval": {r["mode"]: r["fused_mlp_launches"]
+                                       for r in eval_rows},
                   "products_library_ms": total(rows, "launches_per_forward",
                                                "products_library_ms")}),
         entry_of("fused_mlp_bwd", SOURCE_BWD, REPLACES_BWD, rows_bwd, per,
@@ -658,7 +917,9 @@ def main():
     del model
     train_launches = phase_train(smi)
     phase_train_cpu_vs_card(smi)
-    emit(kernel_summary(rows, rows_bwd, launches, train_launches))
+    eval_rows = phase_eval(smi)
+    phase_eval_cpu_vs_card(smi)
+    emit(kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

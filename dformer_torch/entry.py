@@ -1,20 +1,27 @@
 """Entry points of the port: build a model from explicit arguments, serve
-segmentation requests and take training steps (counterpart of
+segmentation requests, take training steps (counterpart of
 `__graft_entry__._build` and of the forward and the train step that
-`bench.py` times).
+`bench.py` times) and evaluate a loaded config (counterpart of what
+`tools/eval.py` assembles).
 
-The card is the default device. `build` and `build_trainer` raise if CUDA is
-unavailable unless the caller passes device="cpu".
+The card is the default device. `build`, `build_trainer` and
+`build_evaluator` raise if CUDA is unavailable unless the caller passes
+device="cpu".
 """
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from dformer_torch.config import AttrDict
+from dformer_torch.data.loader import device_val_batches
+from dformer_torch.eval.evaluate import Evaluator
+from dformer_torch.kernels.fused_mlp import fused_mlp
 from dformer_torch.models.builder import EncoderDecoder, build_model
 from dformer_torch.train.loop import train_step
 from dformer_torch.train.optim import make_optimizer, make_schedule
+from dformer_torch.utils.checkpoint import load_checkpoint
 
 # The NYUDepthv2 DFormer-Large training recipe (the port's own copy of the
 # values in `local_configs.NYUDepthv2.DFormer_Large` and its bases):
@@ -113,3 +120,54 @@ def train_steps(model: EncoderDecoder, optimizer: torch.optim.Optimizer,
                          modal_x, generator, ignore_index=ignore_index)
               for i, (rgb, modal_x, gt) in enumerate(batches)]
     return [float(loss) for loss in losses]
+
+
+def build_evaluator(cfg: AttrDict, dtype: Optional[torch.dtype] = None,
+                    device="cuda", seed: int = 0, sliding: bool = False,
+                    checkpoint: Optional[str] = None, val_batch_size: int = 4,
+                    synthetic: bool = False, n: Optional[int] = None
+                    ) -> Tuple[Evaluator, Iterator[dict]]:
+    """(Evaluator, val batches on `device`) for a loaded config
+    (`dformer_torch.configs.load_config`).
+
+    The model is `build`'s for the config's backbone, classes, image size
+    and BatchNorm eps, computing in `dtype` (None = fp32), with the weights
+    of a torch `checkpoint` file when one is given and `build`'s draw from
+    `seed` otherwise. The batches are `data.loader.device_val_batches`: the
+    config's val split (or `n` synthetic images) in batches of
+    `val_batch_size`, normalised on the device."""
+    if cfg.decoder != "ham" or cfg.aux_rate != 0:
+        raise NotImplementedError(
+            f"decoder {cfg.decoder!r} with aux_rate {cfg.aux_rate} is not "
+            f"ported yet (ROADMAP.md Queue 1, item 10: remaining decoders)")
+    model = build(cfg.backbone, (cfg.image_height, cfg.image_width),
+                  cfg.num_classes, dtype, device, seed,
+                  drop_path_rate=cfg.drop_path_rate, bn_eps=cfg.bn_eps,
+                  bn_momentum=cfg.bn_momentum)
+    if checkpoint is not None:
+        load_checkpoint(model, checkpoint)
+    batches = device_val_batches(cfg, val_batch_size, device,
+                                 synthetic=synthetic, n=n)
+    return Evaluator(model, cfg, sliding=sliding, device=device), batches
+
+
+def msf_group(backbone: str, num_classes: int, rgb: torch.Tensor,
+              modal_x: torch.Tensor, gt: torch.Tensor,
+              scales: Sequence[float], flip: bool = True, device="cuda",
+              seed: int = 0) -> Tuple[np.ndarray, torch.Tensor, int]:
+    """MSF (+ flip) evaluation of one group by `build`'s fp32 model from
+    `seed` on `device`, to hold one device against another: (hist, the
+    group's fp32 probability accumulator on the CPU, fused-MLP kernel
+    launches of the hist's pass). rgb, modal_x [B,H,W,3] and gt [B,H,W] lie
+    on the CPU; the model is built at H x W."""
+    hw = tuple(gt.shape[1:])
+    model = build(backbone, hw, num_classes, None, device, seed)
+    ev = Evaluator(model, AttrDict(num_classes=num_classes, background=255),
+                   device=device)
+    n0 = fused_mlp.launches
+    hist = ev.evaluate_msf([dict(rgb=rgb, modal_x=modal_x, gt=gt)], scales,
+                           flip=flip).hist
+    launches = fused_mlp.launches - n0
+    acc = ev.msf_probs(rgb.to(device), modal_x.to(device), hw, scales,
+                       flip).cpu()
+    return hist, acc, launches

@@ -1,15 +1,18 @@
-"""Where the time of one served batch, or of one train step, goes on the card.
+"""Where the time of one served batch, one train step or one eval batch goes
+on the card.
 
-    python -m dformer_torch.trace_forward [--train] [--out DIR]
+    python -m dformer_torch.trace_forward [--train | --eval] [--out DIR]
 
 Builds DFormer-Large + LightHamHead (bf16, 480x640, weights from seed 0),
 warms up, then traces 10 forwards of a batch of 8 (the main path's), or
-with --train 3 train steps on it, with torch.profiler and prints one JSON
-line: host ms per forward (or step) under the profiler, device kernel ms
-(sum of the durations of the profiler's kernel events), the device idle
-share (1 - kernel time / wall time), the fused-MLP kernels' share, and the
-kernels with the most device time. With --out, also writes the Chrome trace
-there.
+with --train 3 train steps on it, or with --eval 2 multi-scale + flip
+evaluations (scales 0.5-1.5) of one NYUDepthv2 val batch of 4 synthetic
+images already on the card, with torch.profiler and prints one JSON
+line: host ms per forward (or step, or eval batch) under the profiler,
+device kernel ms (sum of the durations of the profiler's kernel events),
+the device idle share (1 - kernel time / wall time), the fused-MLP
+kernels' share, and the kernels with the most device time. With --out,
+also writes the Chrome trace there.
 """
 
 import argparse
@@ -28,9 +31,13 @@ BATCH = 8
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
-    ap.add_argument("--train", action="store_true",
-                    help="trace train steps instead of served forwards")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="trace train steps instead of served forwards")
+    mode.add_argument("--eval", action="store_true",
+                      help="trace multi-scale + flip eval of a val batch")
     args = ap.parse_args()
+    batch_size = BATCH
 
     rng = np.random.RandomState(0)
     rgb = torch.from_numpy(rng.rand(BATCH, 480, 640, 3)
@@ -47,6 +54,20 @@ def main():
         def run():
             entry.train_steps(*trainer, [(rgb, depth, gt)],
                               first_step=next(steps))
+    elif args.eval:
+        from dformer_torch.configs import load_config
+        from dformer_torch.tools.eval import MSF_SCALES
+
+        batch_size = 4
+        cfg = load_config("local_configs.NYUDepthv2.DFormer_Large")
+        ev, batches = entry.build_evaluator(
+            cfg, torch.bfloat16, "cuda", seed=0, val_batch_size=batch_size,
+            synthetic=True, n=batch_size)
+        batch = next(iter(batches))
+        reps, what = 2, "msf_flip_batch"
+
+        def run():
+            ev.evaluate_msf([batch], MSF_SCALES, flip=cfg.eval_flip)
     else:
         model = entry.build("DFormer-Large", (480, 640), 40, torch.bfloat16,
                             "cuda", seed=0)
@@ -85,7 +106,7 @@ def main():
                  or "reduce_splits" in key or "layernorm_rows" in key)
     mlp_bwd_ms = sum(ms for ms, _, key in rows if "fused_mlp_bwd" in key)
     print(json.dumps({
-        "batch": BATCH, f"host_ms_per_{what}": wall_ms,
+        "batch": batch_size, f"host_ms_per_{what}": wall_ms,
         f"device_kernel_ms_per_{what}": kernel_ms,
         "device_idle_share": 1.0 - kernel_ms / wall_ms,
         f"fused_mlp_ms_per_{what}": mlp_ms,

@@ -9,13 +9,15 @@ Every test skips where torch sees no CUDA card (the kernels have no CPU
 mode).
 """
 
+import numpy as np
 import pytest
 import torch
 
+from dformer_torch import entry
 from dformer_torch.kernels.fused_mlp import (fused_mlp,
                                              fused_mlp_backward_reference,
                                              fused_mlp_reference)
-from dformer_torch.models.encoder import MLPBlock
+from dformer_torch.models.encoder import VARIANTS, MLPBlock
 
 
 def _card():
@@ -44,15 +46,20 @@ def _inputs(B, H, W, C, r, dtype, seed=0):
 # (B, H, W, C, ratio): a large map (one split), ragged small maps (hidden
 # channels split over blocks), the wide-C tile shape, and every width the
 # four variants (Tiny, Small, Base, Large) put through the kernel, at the
-# ratio of their stage (8, 8, 4, 4); the last, Ch = 96, leaves the bf16
-# kernel's last 64-channel chunk half full. tests/test_torch_fused_mlp_fwd.py
-# keeps the same list (FWD_CARD_SHAPES) for its CPU test of the plan.
+# ratio of their stage (8, 8, 4, 4); (1, 9, 11, 32, 3), Ch = 96, leaves the
+# bf16 kernel's last 64-channel chunk half full; the last six are the odd
+# stage maps of DFormer-Large's multi-scale eval of 480x640 (inputs
+# 384x480, 608x800 and 736x960) at the widths where they occur.
+# tests/test_torch_fused_mlp_fwd.py keeps the same list (FWD_CARD_SHAPES)
+# for its CPU test of the plan.
 SHAPES = [
     (2, 40, 48, 96, 8), (1, 7, 13, 48, 8), (2, 15, 20, 576, 4),
     (2, 24, 32, 16, 8), (2, 24, 32, 32, 8), (2, 12, 16, 64, 8),
     (1, 9, 11, 64, 4), (1, 12, 16, 128, 8), (1, 10, 9, 128, 4),
     (1, 10, 9, 144, 4), (2, 12, 16, 192, 8), (1, 15, 20, 256, 4),
-    (1, 10, 9, 288, 4), (1, 8, 10, 512, 4), (1, 9, 11, 32, 3)]
+    (1, 10, 9, 288, 4), (1, 8, 10, 512, 4), (1, 9, 11, 32, 3),
+    (1, 12, 15, 576, 4), (1, 19, 25, 576, 4), (1, 23, 30, 288, 4),
+    (1, 38, 50, 288, 4), (1, 76, 100, 192, 8), (1, 184, 240, 96, 8)]
 
 
 @pytest.mark.cuda
@@ -161,3 +168,27 @@ def test_mlp_block_backward_runs_the_kernel_on_the_card():
         assert got[name].shape == b.shape and got[name].dtype == b.dtype
         assert (got[name] - b).abs().max().item() <= \
             1e-3 * max(b.abs().max().item(), 1e-3), name
+
+
+@pytest.mark.cuda
+def test_narrow_msf_eval_on_the_card_matches_the_cpu(monkeypatch):
+    """MSF + flip (scales 0.5 and 1) of a narrow fp32 DFormer + ham over 2
+    images of 64x96: the card through the kernel, the CPU through the plain
+    version, on the same weights. fp32 differs by summation order only: the
+    accumulators within 1e-4, the hists equal."""
+    _card()
+    narrow = dict(dims=(32, 64, 128, 256), depths=(1, 1, 1, 2),
+                  num_heads=(1, 2, 4, 8), windows=(0, 7, 7, 7),
+                  mlp_ratios=(8, 8, 4, 4))
+    monkeypatch.setitem(VARIANTS, "DFormer-Narrow", narrow)
+    rng = np.random.RandomState(0)
+    rgb, modal = (torch.from_numpy(rng.randn(2, 64, 96, 3)
+                                   .astype(np.float32)) for _ in range(2))
+    gt = torch.from_numpy(rng.randint(0, 11, (2, 64, 96)))
+    (hist_card, acc_card, n_card), (hist_cpu, acc_cpu, n_cpu) = (
+        entry.msf_group("DFormer-Narrow", 11, rgb, modal, gt, [0.5, 1.0],
+                        True, device) for device in ("cuda", "cpu"))
+    assert n_card == 4 * 9 and n_cpu == 0  # 4 forwards, 9 MLP calls each
+    assert hist_card.sum() == 2 * 64 * 96
+    assert (acc_card - acc_cpu).abs().max().item() <= 1e-4
+    np.testing.assert_array_equal(hist_card, hist_cpu)

@@ -23,13 +23,15 @@ from dformer_tpu.ops.activations import _ERF_COEF, poly_gelu
 # (B, H, W, C, ratio) of the forward card tests (tests/test_torch_cuda.py
 # SHAPES; that file imports no JAX, so the list is kept here too): every
 # width the four variants use, with their stages' ratios, ragged small maps,
-# and a half-full last chunk
+# a half-full last chunk, and the odd stage maps of multi-scale eval
 FWD_CARD_SHAPES = [
     (2, 40, 48, 96, 8), (1, 7, 13, 48, 8), (2, 15, 20, 576, 4),
     (2, 24, 32, 16, 8), (2, 24, 32, 32, 8), (2, 12, 16, 64, 8),
     (1, 9, 11, 64, 4), (1, 12, 16, 128, 8), (1, 10, 9, 128, 4),
     (1, 10, 9, 144, 4), (2, 12, 16, 192, 8), (1, 15, 20, 256, 4),
-    (1, 10, 9, 288, 4), (1, 8, 10, 512, 4), (1, 9, 11, 32, 3)]
+    (1, 10, 9, 288, 4), (1, 8, 10, 512, 4), (1, 9, 11, 32, 3),
+    (1, 12, 15, 576, 4), (1, 19, 25, 576, 4), (1, 23, 30, 288, 4),
+    (1, 38, 50, 288, 4), (1, 76, 100, 192, 8), (1, 184, 240, 96, 8)]
 
 SOURCE = (Path(__file__).resolve().parents[1] / "dformer_torch" / "kernels"
           / "csrc" / "fused_mlp_fwd.cu")
