@@ -37,12 +37,24 @@ Phases, each printing JSON lines:
                    both MSF + flip runs
   9. eval_cpu_vs_card - MSF + flip of a narrow fp32 model on the card
                    (kernel) and on the CPU (plain version): equal hists
+ 10. fit         - dformer_torch.tools.train.run on the NYUDepthv2
+                   DFormer-Large config (bf16, bs8, 480x640, synthetic
+                   data): 2 epochs of 4 iterations, MSF + flip fp32
+                   evaluation of 4 images after epoch 1, a rescue checkpoint
+                   after epoch 2 (a preemption requested there), then a
+                   second run resumed from it for epoch 3; launches per
+                   step, losses, steps, kept checkpoints, the restored state
+                   and the file's logits in a fresh model checked; the
+                   augmentation on the card against the CPU on one batch;
+                   ms per step, augment ms, eval and checkpoint seconds,
+                   checkpoint bytes, peak memory
 Then the kernel summary line, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; nothing is caught. Exits non-zero
 before printing any result when CUDA is unavailable.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -100,6 +112,11 @@ EVAL_SCALES = [0.5, 0.75, 1.0, 1.25, 1.5]
 EVAL_BATCH = 4
 EVAL_ACC_SUM_LIMIT = 1e-3
 EVAL_CPU_VS_CARD_ACC = 1e-4
+# the fit phase: iterations per epoch and val images of the train tool's
+# run; the card's bilinear resample against the CPU's (fp32, same order)
+FIT_ITERS = 4
+FIT_VAL_IMAGES = 4
+AUGMENT_LIMIT = 1e-5
 
 
 def emit(obj):
@@ -160,6 +177,23 @@ def kernel_cases():
              for name, h, w, c, ch, n in mlp_shapes()]
     cases.append(("fp32_check", 2, 30, 40, 96, 768, 0, torch.float32))
     return cases
+
+
+def variant_bwd_cases():
+    """(name, B, H, W, C, Ch, 0, bf16): the backward kernel at each width
+    that only DFormer-Tiny, -Small and -Base train with, at the first map
+    (480x640, bs8) that gives it that width and hidden size. Not on the
+    main path: checked, and outside its sums."""
+    import torch
+
+    return [(name, BATCH, HW[0] // s, HW[1] // s, c, ch, 0, torch.bfloat16)
+            for name, s, c, ch in (
+                ("tiny.stage0.mlp_e2", 4, 16, 128),
+                ("tiny.stage0.mlp", 4, 32, 256),
+                ("small.stage0.mlp", 4, 64, 512),
+                ("small.stage1.mlp", 8, 128, 1024),
+                ("small.stage2.mlp", 16, 256, 1024),
+                ("small.stage3.mlp", 32, 512, 2048))]
 
 
 def mlp_inputs(B, H, W, C, Ch, dtype, seed):
@@ -297,7 +331,8 @@ def phase_kernels(smi):
 
 
 def phase_kernels_bwd(smi):
-    """The backward kernel at the same shapes: all nine outputs against the
+    """The backward kernel at the same shapes and at the widths of the
+    other variants (`variant_bwd_cases`): all nine outputs against the
     plain backward, times and bound, and a second run on the same inputs
     (all nine outputs must be bit-equal). Each of the call's four launches
     timed by CUDA events, the blocks per SM of K1 and K3, and torch.matmul
@@ -309,7 +344,8 @@ def phase_kernels_bwd(smi):
         fused_mlp_backward, fused_mlp_backward_reference)
 
     rows, misses = [], []
-    for i, (name, B, H, W, C, Ch, n, dtype) in enumerate(kernel_cases()):
+    for i, (name, B, H, W, C, Ch, n, dtype) in enumerate(
+            kernel_cases() + variant_bwd_cases()):
         args = mlp_inputs(B, H, W, C, Ch, dtype, seed=100 + i)
         gen = torch.Generator(device="cuda").manual_seed(200 + i)
         g = torch.randn(B, H, W, C, generator=gen, device="cuda").to(dtype)
@@ -855,12 +891,215 @@ def phase_eval_cpu_vs_card(smi):
           "narrow eval: card and CPU hists differ")
 
 
-def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows):
+def step_gaps_ms(trainer):
+    """ms between successive log lines of one epoch: with fewer than 20
+    iterations an epoch, the Trainer logs, and waits for the card, after
+    every step, so each gap is one step (the loader's wait included)."""
+    return [(t - t_prev) * 1e3 for (e, _, t_prev), (e2, _, t)
+            in zip(trainer.log_times, trainer.log_times[1:]) if e == e2]
+
+
+def fit_config(root, nepochs):
+    from dformer_torch.configs import load_config
+
+    cfg = load_config("local_configs.NYUDepthv2.DFormer_Large")
+    cfg.update(niters_per_epoch=FIT_ITERS, nepochs=nepochs,
+               checkpoint_start_epoch=0, num_eval_imgs=FIT_VAL_IMAGES,
+               log_dir_base=f"{root}/run_to_{nepochs}")
+    return cfg
+
+
+def phase_fit(smi):
+    """The train tool at full width: `tools.train.run` on the NYUDepthv2
+    DFormer-Large config (bf16 compute, bs8, 480x640, synthetic data),
+    epochs of FIT_ITERS iterations, fp32 MSF + flip evaluation of
+    FIT_VAL_IMAGES images, then a resume from the epoch-2 rescue checkpoint
+    for epoch 3. Returns the kernel launches of the first run."""
+    import tempfile
+
+    import torch
+
+    from dformer_torch import entry
+    from dformer_torch.data.augment import (apply_train_augment,
+                                            train_augment_draws)
+    from dformer_torch.data.loader import train_batches
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+    from dformer_torch.tools import train as train_tool
+    from dformer_torch.runtime.preempt import StopAfter
+    from dformer_torch.train.checkpoint import (CheckpointManager,
+                                                state_difference)
+    from dformer_torch.train.loop import Trainer
+    from dformer_torch.utils.checkpoint import load_checkpoint
+
+    per_step = sum(n for *_, n in mlp_shapes())
+    # one MSF + flip group of FIT_VAL_IMAGES images: 5 scales x 2 flips
+    per_eval = 10 * per_step
+    flags = ["--config=local_configs.NYUDepthv2.DFormer_Large",
+             "--synthetic-data", f"--val_batch_size={FIT_VAL_IMAGES}"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as root:
+        # run 1: epochs 1-2, a preemption requested after epoch 2 (the
+        # Trainer reads the guard before each step, the tool after each
+        # epoch: read 2 * (FIT_ITERS + 1) is the one after epoch 2)
+        cfg = fit_config(root, 2)
+        fused_mlp.launches = fused_mlp.backward_launches = 0
+        t0 = time.perf_counter()
+        first = train_tool.run(cfg, train_tool.parse_args(flags),
+                               guard=StopAfter(2 * (FIT_ITERS + 1)))
+        first_s = time.perf_counter() - t0
+        launches = (fused_mlp.launches, fused_mlp.backward_launches)
+        a = first.pop("trainer")
+        gaps = step_gaps_ms(a)
+        steps = 2 * FIT_ITERS
+        check(a.step == steps, f"run 1 ended at step {a.step}, not {steps}")
+        check(launches == (steps * per_step + per_eval, steps * per_step),
+              f"run 1: {launches} forward and backward launches, expected "
+              f"{per_step} of each per step and {per_eval} forward in the "
+              "epoch-1 evaluation")
+        check(all(np.isfinite(v) for v in first["losses"].values()),
+              f"run 1 losses {first['losses']}")
+        check(sorted(first["eval_seconds"]) == [1],
+              f"run 1 evaluated after epochs {sorted(first['eval_seconds'])}")
+        m1 = first["best_miou"]
+        kept = sorted(n for *_, n in first["checkpoints"]._existing())
+        # epoch 1 saves when its mIoU beats 0; the rescue at epoch 2 saves
+        # under the best mIoU so far
+        want = sorted(({f"epoch-1_miou_{round(m1, 2)}.pth"} if m1 > 0
+                       else set()) | {f"epoch-2_miou_{round(m1, 2)}.pth"})
+        check(kept == want, f"run 1 kept {kept}, expected {want}")
+        rescue, epoch = first["checkpoints"].latest()
+        check(epoch == 2, f"latest checkpoint is epoch {epoch}")
+
+        # save and restore timed on their own; the restored state equal
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = CheckpointManager(f"{root}/timed").save(a, 2, m1)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(timed)
+        b = Trainer(*entry.build_training(cfg, torch.bfloat16, "cuda",
+                                          cfg.seed)[:3], cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        next_epoch = CheckpointManager(f"{root}/timed").restore(b, timed)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(next_epoch == 3 and b.step == steps,
+              f"restore: epoch {next_epoch}, step {b.step}")
+        differs = state_difference(a, b)
+        check(differs is None, f"restored state differs: {differs}")
+        del b
+
+        # the rescue file in a fresh serving model gives the same logits
+        rng = np.random.RandomState(9)
+        rgb, depth, _ = train_batch(rng, 2, HW, NUM_CLASSES)
+        fresh = load_checkpoint(entry.build("DFormer-Large", HW, NUM_CLASSES,
+                                            torch.bfloat16, "cuda"), rescue)
+        with torch.inference_mode():
+            logits_file = fresh(rgb, depth)
+            logits_trained = a.model.eval()(rgb, depth)
+        logits_diff = (logits_file.float() - logits_trained.float()).abs() \
+            .max().item()
+        check(torch.equal(logits_file, logits_trained),
+              f"logits of the checkpoint differ by {logits_diff}")
+        del fresh, logits_file, logits_trained
+
+        # the augmentation on the card against the CPU, same draws
+        batch = next(iter(train_batches(cfg, synthetic=True)))
+        draws = train_augment_draws(BATCH, len(cfg.train_scale_array),
+                                    torch.Generator().manual_seed(5))
+        stats = [torch.as_tensor(np.asarray(v), dtype=torch.float32)
+                 for v in (cfg.norm_mean, cfg.norm_std, [0.48] * 3,
+                           [0.28] * 3)]
+
+        def augment(device):
+            return apply_train_augment(
+                *(torch.from_numpy(batch[k]).to(device)
+                  for k in ("rgb", "gt", "modal_x")),
+                *(d.to(device) for d in draws), HW, cfg.train_scale_array,
+                *(v.to(device) for v in stats))
+
+        card, cpu = augment("cuda"), augment("cpu")
+        check(torch.equal(card[1].cpu(), cpu[1]),
+              "augment: card and CPU labels differ")
+        aug_err = max((x.cpu() - y).abs().max().item()
+                      for x, y in ((card[0], cpu[0]), (card[2], cpu[2])))
+        check(aug_err <= AUGMENT_LIMIT,
+              f"augment: card and CPU images differ by {aug_err}")
+        on_card = {k: torch.from_numpy(batch[k]).cuda()
+                   for k in ("rgb", "gt", "modal_x")}
+        args_card = ([on_card[k] for k in ("rgb", "gt", "modal_x")]
+                     + [d.cuda() for d in draws] + [HW]
+                     + [torch.tensor(cfg.train_scale_array, device="cuda")]
+                     + [v.cuda() for v in stats])
+        augment_ms = time_ms(lambda: apply_train_augment(*args_card),
+                             reps=10, calls=3)
+        del card, cpu, on_card, args_card
+        del a
+
+        # run 2: resume from the rescue checkpoint for epoch 3
+        cfg = fit_config(root, 3)
+        fused_mlp.launches = fused_mlp.backward_launches = 0
+        t0 = time.perf_counter()
+        second = train_tool.run(cfg, train_tool.parse_args(
+            flags + [f"--continue_fpath={rescue}"]))
+        second_s = time.perf_counter() - t0
+        launches2 = (fused_mlp.launches, fused_mlp.backward_launches)
+        c = second.pop("trainer")
+        gaps += step_gaps_ms(c)
+        steps2 = c.step
+        check(c.step == steps + FIT_ITERS,
+              f"run 2 ended at step {c.step}, not {steps + FIT_ITERS}")
+        check(launches2 == (FIT_ITERS * per_step + per_eval,
+                            FIT_ITERS * per_step),
+              f"run 2: {launches2} forward and backward launches")
+        check(list(second["losses"]) == [3]
+              and np.isfinite(second["losses"][3]),
+              f"run 2 losses {second['losses']}")
+        m3 = second["best_miou"]
+        kept2 = sorted(n for *_, n in second["checkpoints"]._existing())
+        want2 = [f"epoch-3_miou_{round(m3, 2)}.pth"] if m3 > 0 else []
+        check(kept2 == want2, f"run 2 kept {kept2}, expected {want2}")
+        del c
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit({"phase": "fit", "model": "DFormer-Large+LightHamHead",
+          "config": "local_configs.NYUDepthv2.DFormer_Large", "batch": BATCH,
+          "hw": list(HW), "dtype": "bfloat16", "eval_dtype": "float32",
+          "iterations_per_epoch": FIT_ITERS, "val_images": FIT_VAL_IMAGES,
+          "losses": {**first["losses"], **second["losses"]},
+          "miou": {1: m1, 3: m3}, "steps": [steps, steps2],
+          "kept_run1": kept, "kept_run2": kept2,
+          "fused_mlp_launches_run1": launches,
+          "fused_mlp_launches_run2": launches2,
+          "fwd_launches_per_step": per_step, "bwd_launches_per_step": per_step,
+          "ms_per_step": statistics.median(gaps), "ms_each_step": gaps,
+          # whole epochs on the host's clock over their steps: the loader's
+          # start, a wait for the card at every step's log line and, in the
+          # first epoch of each run, the coverage audit included
+          "ms_per_step_by_epoch": {
+              e: s * 1e3 / FIT_ITERS for e, s in
+              {**first["epoch_seconds"], **second["epoch_seconds"]}.items()},
+          "augment_ms": augment_ms, "augment_max_abs_err": aug_err,
+          "augment_labels_equal": True,
+          "epoch_seconds": {**first["epoch_seconds"],
+                            **second["epoch_seconds"]},
+          "eval_seconds": {**first["eval_seconds"], **second["eval_seconds"]},
+          "checkpoint_bytes": ckpt_bytes, "save_s": save_s,
+          "restore_s": restore_s, "logits_equal": True,
+          "run1_s": first_s, "run2_s": second_s, "peak_mem_gib": peak,
+          "card": smi})
+    return launches
+
+
+def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
+                   fit_launches):
     """One entry per kernel: times per forward or per train step (each
     shape's time times its launches, summed over the main-path shapes).
     `launches` are those of the serving path's run for the forward kernel
-    (its launches in the train steps and in each timed eval run beside
-    them) and of the train path's counted steps for the backward kernel; a
+    (its launches in the train steps, in each timed eval run and in the
+    train tool's first run beside them) and of the train path's counted
+    steps for the backward kernel (its launches in the train tool's first
+    run beside them); a
     backward call is four CUDA launches (K1-K4), whose times per step are
     listed, with torch.matmul of K3's two products beside K3; beside the
     forward, torch.matmul of its two products."""
@@ -890,13 +1129,15 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows):
         entry_of("fused_mlp_fwd", SOURCE, REPLACES, rows,
                  "launches_per_forward", launches,
                  {"launches_in_train_steps": train_launches[0],
+                  "launches_in_fit": fit_launches[0],
                   "launches_in_eval": {r["mode"]: r["fused_mlp_launches"]
                                        for r in eval_rows},
                   "products_library_ms": total(rows, "launches_per_forward",
                                                "products_library_ms")}),
         entry_of("fused_mlp_bwd", SOURCE_BWD, REPLACES_BWD, rows_bwd, per,
                  train_launches[1],
-                 {"stage_ms": stages,
+                 {"launches_in_fit": fit_launches[1],
+                  "stage_ms": stages,
                   "wgrad_library_ms": total(rows_bwd, per,
                                             "wgrad_library_ms")})]}
 
@@ -919,7 +1160,9 @@ def main():
     phase_train_cpu_vs_card(smi)
     eval_rows = phase_eval(smi)
     phase_eval_cpu_vs_card(smi)
-    emit(kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows))
+    fit_launches = phase_fit(smi)
+    emit(kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
+                        fit_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

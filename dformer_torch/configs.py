@@ -10,6 +10,7 @@ JAX package. A test holds every key of every leaf to the JAX loader's.
 
 import os
 import os.path as osp
+import time
 
 import numpy as np
 
@@ -235,3 +236,21 @@ def load_config(path: str) -> AttrDict:
         raise KeyError(f"unknown config {path!r}; known: "
                        f"{', '.join(sorted(LEAVES))}") from None
     return make()
+
+
+def finalize_run_dirs(cfg: AttrDict) -> AttrDict:
+    """Timestamped run directories, made: log_dir (`log_dir_base` + a
+    stamp), tb_dir and checkpoint_dir in it; log_file and val_log_file
+    named there."""
+    stamp = time.strftime("%Y%m%d-%H%M%S", time.localtime())
+    base = cfg.get("log_dir_base",
+                   osp.abspath(f"checkpoints/{cfg.dataset_name}_{cfg.backbone}"))
+    cfg.log_dir = f"{base}_{stamp}"
+    cfg.tb_dir = osp.join(cfg.log_dir, "tb")
+    cfg.checkpoint_dir = osp.join(cfg.log_dir, "checkpoint")
+    exp_time = time.strftime("%Y_%m_%d_%H_%M_%S", time.localtime())
+    cfg.log_file = osp.join(cfg.log_dir, f"log_{exp_time}.log")
+    cfg.val_log_file = osp.join(cfg.log_dir, f"val_{exp_time}.log")
+    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    os.makedirs(cfg.tb_dir, exist_ok=True)
+    return cfg

@@ -1,15 +1,18 @@
 """Entry points of the port: build a model from explicit arguments, serve
 segmentation requests, take training steps (counterpart of
 `__graft_entry__._build` and of the forward and the train step that
-`bench.py` times) and evaluate a loaded config (counterpart of what
-`tools/eval.py` assembles).
+`bench.py` times), evaluate a loaded config (counterpart of what
+`tools/eval.py` assembles) and set up the training of a loaded config (what
+`tools/train.py` assembles).
 
-The card is the default device. `build`, `build_trainer` and
-`build_evaluator` raise if CUDA is unavailable unless the caller passes
-device="cpu".
+The card is the default device. `build`, `build_trainer`,
+`build_evaluator` and `build_training` raise if CUDA is unavailable unless
+the caller passes device="cpu".
 """
 
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple
+import os
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -20,8 +23,10 @@ from dformer_torch.eval.evaluate import Evaluator
 from dformer_torch.kernels.fused_mlp import fused_mlp
 from dformer_torch.models.builder import EncoderDecoder, build_model
 from dformer_torch.train.loop import train_step
-from dformer_torch.train.optim import make_optimizer, make_schedule
-from dformer_torch.utils.checkpoint import load_checkpoint
+from dformer_torch.train.optim import (make_optimizer, make_schedule,
+                                       trainable_mask_from_matched)
+from dformer_torch.utils.checkpoint import (load_checkpoint,
+                                            load_pretrained_encoder)
 
 # The NYUDepthv2 DFormer-Large training recipe (the port's own copy of the
 # values in `local_configs.NYUDepthv2.DFormer_Large` and its bases):
@@ -31,6 +36,24 @@ TRAIN_RECIPE = dict(
     optimizer="AdamW", lr=6e-5, weight_decay=0.01, lr_power=0.9,
     drop_path_rate=0.15, aux_rate=0.0, bn_eps=1e-3, bn_momentum=0.1,
     warm_up_epoch=10, niters_per_epoch=100, nepochs=500)
+
+
+def _use_device(who: str, device):
+    """Raise when `device` is the card and there is none; on the card, turn
+    TF32 off so that fp32 products (the NMF, fp32 runs) stay fp32."""
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{who}: CUDA is not available; pass "
+                               "device='cpu' to run on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _require_ham(cfg):
+    if cfg.decoder != "ham" or cfg.aux_rate != 0:
+        raise NotImplementedError(
+            f"decoder {cfg.decoder!r} with aux_rate {cfg.aux_rate} is not "
+            f"ported yet (ROADMAP.md Queue 1, item 10: remaining decoders)")
 
 
 def build(backbone: str = "DFormer-Large", hw: Tuple[int, int] = (480, 640),
@@ -51,12 +74,7 @@ def build(backbone: str = "DFormer-Large", hw: Tuple[int, int] = (480, 640),
     `torch.backends.cudnn.allow_tf32` to False: fp32 products (the NMF, fp32
     runs) stay fp32. `hw` is the input size the model serves; the model
     itself takes any size."""
-    if torch.device(device).type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("entry.build: CUDA is not available; pass "
-                               "device='cpu' to run on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    _use_device("entry.build", device)
     cfg = AttrDict(backbone=backbone, decoder="ham", num_classes=num_classes,
                    decoder_embed_dim=512, drop_path_rate=drop_path_rate,
                    aux_rate=0.0, bn_eps=bn_eps, bn_momentum=bn_momentum,
@@ -136,10 +154,7 @@ def build_evaluator(cfg: AttrDict, dtype: Optional[torch.dtype] = None,
     `seed` otherwise. The batches are `data.loader.device_val_batches`: the
     config's val split (or `n` synthetic images) in batches of
     `val_batch_size`, normalised on the device."""
-    if cfg.decoder != "ham" or cfg.aux_rate != 0:
-        raise NotImplementedError(
-            f"decoder {cfg.decoder!r} with aux_rate {cfg.aux_rate} is not "
-            f"ported yet (ROADMAP.md Queue 1, item 10: remaining decoders)")
+    _require_ham(cfg)
     model = build(cfg.backbone, (cfg.image_height, cfg.image_width),
                   cfg.num_classes, dtype, device, seed,
                   drop_path_rate=cfg.drop_path_rate, bn_eps=cfg.bn_eps,
@@ -149,6 +164,43 @@ def build_evaluator(cfg: AttrDict, dtype: Optional[torch.dtype] = None,
     batches = device_val_batches(cfg, val_batch_size, device,
                                  synthetic=synthetic, n=n)
     return Evaluator(model, cfg, sliding=sliding, device=device), batches
+
+
+def build_training(cfg: AttrDict, dtype: Optional[torch.dtype] = torch.bfloat16,
+                   device="cuda", seed: int = 0, logger=None
+                   ) -> Tuple[EncoderDecoder, torch.optim.Optimizer,
+                              Callable[[int], float],
+                              Optional[Dict[str, bool]]]:
+    """(model in train mode, optimizer, schedule step -> lr, trainable mask
+    or None) for a loaded config (`dformer_torch.configs.load_config`), as
+    `tools/train.py` assembles them.
+
+    The model is the config's backbone + LightHamHead with fp32 parameters
+    on `device` computing in `dtype` (None = fp32), drawn by the layers' own
+    training init under `torch.manual_seed(seed)` (LayerScales 1e-6). When
+    `cfg.pretrained_model` names a file that exists, the encoder is loaded
+    from it and every loaded parameter is frozen (left out of the
+    optimizer); otherwise the whole model trains from scratch. The
+    optimizer is `cfg.optimizer` (AdamW or SGDM), the schedule the warm-up
+    poly rate of `cfg`."""
+    _require_ham(cfg)
+    _use_device("entry.build_training", device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = build_model(cfg, device="cpu", dtype=dtype)
+    matched = []
+    pretrained = cfg.get("pretrained_model")
+    if pretrained and os.path.exists(pretrained):
+        matched = load_pretrained_encoder(model, pretrained)
+        if logger:
+            logger.info(f"loaded pretrained encoder {pretrained}: "
+                        f"{len(matched)} parameters, frozen")
+    elif pretrained and logger:
+        logger.info(f"pretrained model {pretrained} not found; training "
+                    "from scratch")
+    model = model.to(device).train()
+    mask = trainable_mask_from_matched(model, matched) if matched else None
+    return model, make_optimizer(cfg, model, mask), make_schedule(cfg), mask
 
 
 def msf_group(backbone: str, num_classes: int, rgb: torch.Tensor,

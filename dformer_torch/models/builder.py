@@ -7,6 +7,7 @@ BatchNorms use batch statistics, DropPath and dropout draw from the
 `generator` argument, and the NMF draws fresh bases from it.
 """
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -84,3 +85,19 @@ def build_model(cfg, device="cuda", dtype: Optional[torch.dtype] = None
         aux_rate=cfg.get("aux_rate", 0.0), bn_eps=cfg.get("bn_eps", 1e-3),
         bn_momentum=cfg.get("bn_momentum", 0.1), dtype=dtype)
     return model.to(device)
+
+
+@contextlib.contextmanager
+def compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]):
+    """Run `model` in `dtype` (None = fp32 on fp32 inputs) inside the block,
+    whatever dtype it was built with; the parameters stay as they are. The
+    train tool evaluates a bf16-trained model in fp32 this way."""
+    mods = [m for m in model.modules() if hasattr(m, "dtype")]
+    before = [m.dtype for m in mods]
+    for m in mods:
+        m.dtype = dtype
+    try:
+        yield model
+    finally:
+        for m, d in zip(mods, before):
+            m.dtype = d

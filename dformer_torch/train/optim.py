@@ -1,7 +1,17 @@
 """Optimizer construction (counterpart of `dformer_tpu/train/optim.py`):
-AdamW with decay / no-decay grouping and the warm-up poly schedule."""
+AdamW or SGDM with decay / no-decay grouping, the warm-up poly schedule,
+and the frozen-parameter mask.
 
-from typing import Callable
+A frozen parameter (one loaded from the pretrained encoder: the reference
+freezes every successfully loaded encoder tensor) is left out of the
+optimizer's groups, so it gets no update and no weight decay, as optax's
+`set_to_zero` gives it in the JAX package. Its gradient is still computed,
+as in JAX. The groups are always [decayed, not decayed], in
+`named_parameters()` order: a checkpoint's optimizer state, which torch
+indexes by position, restores into the groups of the same frozen set.
+"""
+
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 from torch import nn
@@ -17,6 +27,17 @@ def decay_mask(model: nn.Module) -> dict:
             for name, p in model.named_parameters()}
 
 
+def trainable_mask_from_matched(model: nn.Module, matched: Iterable[str],
+                                prefix: str = "encoder_backbone."
+                                ) -> Dict[str, bool]:
+    """{parameter name: False if frozen}: a parameter under `prefix` whose
+    name (relative to the model) is in `matched`, the names the pretrained
+    load filled."""
+    frozen = set(matched)
+    return {name: not (name.startswith(prefix) and name in frozen)
+            for name, _ in model.named_parameters()}
+
+
 def make_schedule(cfg) -> Callable[[int], float]:
     total = cfg.nepochs * cfg.niters_per_epoch
     warmup = cfg.niters_per_epoch * cfg.warm_up_epoch
@@ -26,19 +47,29 @@ def make_schedule(cfg) -> Callable[[int], float]:
     return sched
 
 
-def make_optimizer(cfg, model: nn.Module) -> torch.optim.Optimizer:
-    """AdamW (b1 0.9, b2 0.999, eps 1e-8) with decoupled weight decay on the
-    `decay_mask` leaves only. The learning rate is written into the groups
-    by the train step from the schedule."""
-    if cfg.get("optimizer", "AdamW") != "AdamW":
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet (ROADMAP.md "
-            f"Queue 1: SGDM)")
+def make_optimizer(cfg, model: nn.Module,
+                   trainable_mask: Optional[Dict[str, bool]] = None
+                   ) -> torch.optim.Optimizer:
+    """cfg.optimizer "AdamW" (b1 0.9, b2 0.999, eps 1e-8, decoupled decay)
+    or "SGDM" (optax `add_decayed_weights` then `sgd(momentum)`: the decay
+    added to the gradient, heavy-ball momentum with no dampening, no
+    Nesterov), with weight decay on the `decay_mask` parameters only and the
+    frozen parameters of `trainable_mask` in no group. The learning rate is
+    written into the groups by the train step from the schedule."""
+    kind = cfg.get("optimizer", "AdamW")
+    if kind not in ("AdamW", "SGDM"):
+        raise NotImplementedError(kind)
     mask = decay_mask(model)
-    params = dict(model.named_parameters())
+    trainable = trainable_mask or {}
+    params = [(n, p) for n, p in model.named_parameters()
+              if trainable.get(n, True)]
     groups = [
-        {"params": [params[n] for n in mask if mask[n]],
+        {"params": [p for n, p in params if mask[n]],
          "weight_decay": cfg.weight_decay},
-        {"params": [params[n] for n in mask if not mask[n]],
+        {"params": [p for n, p in params if not mask[n]],
          "weight_decay": 0.0}]
-    return torch.optim.AdamW(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    if kind == "AdamW":
+        return torch.optim.AdamW(groups, lr=cfg.lr, betas=(0.9, 0.999),
+                                 eps=1e-8)
+    return torch.optim.SGD(groups, lr=cfg.lr, momentum=cfg.momentum,
+                           dampening=0.0, nesterov=False)

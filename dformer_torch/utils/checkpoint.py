@@ -3,9 +3,11 @@
 The port's modules keep the reference model's state_dict key names, so a
 reference checkpoint loads by name. Orbax directories, which the JAX
 trainer writes, are not read yet (ROADMAP.md Queue 1, item 12c).
+`load_pretrained_encoder` fills the encoder from a pretrained backbone
+file and names what it filled, for the frozen set of training.
 """
 
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -33,3 +35,38 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:
     or a model key the file lacks, raises and names them all."""
     model.load_state_dict(load_torch_checkpoint(path), strict=True)
     return model
+
+
+def strip_prefixes(state_dict: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """Drop a leading "backbone." and then a leading "module." from every
+    key (the reference's pretrained load, DFormer.py:261-269)."""
+    out = {}
+    for k, v in state_dict.items():
+        if k.startswith("backbone."):
+            k = k[len("backbone."):]
+        if k.startswith("module."):
+            k = k[len("module."):]
+        out[k] = v
+    return out
+
+
+def load_pretrained_encoder(model: torch.nn.Module, path: str) -> List[str]:
+    """Load a pretrained backbone file into `model.encoder_backbone` by key
+    name, leaving out the keys the encoder lacks (a classifier head, say),
+    and return the names of the parameters it filled, relative to `model`
+    ("encoder_backbone. ..."), which `train.optim.trainable_mask_from_matched`
+    freezes. A key whose shape differs from the encoder's raises."""
+    enc = model.encoder_backbone
+    own = enc.state_dict()
+    load = {}
+    for k, v in strip_prefixes(load_torch_checkpoint(path)).items():
+        if k not in own:
+            continue
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"{path}: {k} has shape {tuple(v.shape)}, the "
+                             f"encoder {tuple(own[k].shape)}")
+        load[k] = v
+    enc.load_state_dict(load, strict=False)
+    params = {n for n, _ in enc.named_parameters()}
+    return sorted(f"encoder_backbone.{k}" for k in load if k in params)

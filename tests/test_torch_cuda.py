@@ -1,5 +1,6 @@
 """The port's CUDA kernels (fused-MLP forward and backward) against their
-plain PyTorch versions, on the card.
+plain PyTorch versions, on the card, and the card's runs of the model, the
+evaluation and the train augmentation against the CPU's.
 
 Imports no JAX, so that it runs on a machine with a card and no JAX:
 
@@ -14,6 +15,8 @@ import pytest
 import torch
 
 from dformer_torch import entry
+from dformer_torch.data.augment import (apply_train_augment,
+                                        train_augment_draws)
 from dformer_torch.kernels.fused_mlp import (fused_mlp,
                                              fused_mlp_backward_reference,
                                              fused_mlp_reference)
@@ -111,8 +114,13 @@ def test_fused_mlp_rejects_what_the_kernel_does_not_take():
 # the backward kernel, with ragged tiles at the right and bottom edges; N is
 # not a multiple of 16 and the hidden chunks split over blocks at
 # (1, 7, 13, 48, 8)
+# DFormer-Large's widths, then every width only Tiny, Small and Base train
+# with (C 16-512, at their stages' ratios), at the forward's shapes
 BWD_SHAPES = [(2, 40, 48, 96, 8), (1, 7, 13, 48, 8), (1, 9, 11, 144, 4),
-              (1, 10, 9, 288, 4), (2, 15, 20, 576, 4)]
+              (1, 10, 9, 288, 4), (2, 15, 20, 576, 4),
+              (2, 24, 32, 16, 8), (2, 24, 32, 32, 8), (2, 12, 16, 64, 8),
+              (1, 9, 11, 64, 4), (1, 12, 16, 128, 8), (1, 10, 9, 128, 4),
+              (1, 15, 20, 256, 4), (1, 8, 10, 512, 4)]
 BWD_NAMES = ["dx", "dln_w", "dln_b", "dfc1_w", "dfc1_b", "dpos_w", "dpos_b",
              "dfc2_w", "dfc2_b"]
 
@@ -192,3 +200,37 @@ def test_narrow_msf_eval_on_the_card_matches_the_cpu(monkeypatch):
     assert hist_card.sum() == 2 * 64 * 96
     assert (acc_card - acc_cpu).abs().max().item() <= 1e-4
     np.testing.assert_array_equal(hist_card, hist_cpu)
+
+
+@pytest.mark.cuda
+def test_train_augment_on_the_card_matches_the_cpu():
+    """One uint8 batch of NYUDepthv2's size, a canvas batch with true
+    extents: the same draws on the card and on the CPU give equal labels
+    and images within 1e-5."""
+    _card()
+    rng = np.random.RandomState(0)
+    scales = [0.5, 0.75, 1, 1.25, 1.5, 1.75]
+    stats = [torch.tensor(v) for v in ((0.485, 0.456, 0.406),
+                                       (0.229, 0.224, 0.225), (0.48,) * 3,
+                                       (0.28,) * 3)]
+    for hw, true_hw in (((480, 640), None),
+                        ((530, 730), [[530, 730], [480, 640], [427, 561],
+                                      [530, 700]])):
+        batch = [torch.from_numpy(rng.randint(0, 256, (4, *hw, 3))
+                                  .astype(np.uint8)),
+                 torch.from_numpy(rng.randint(0, 40, (4, *hw))
+                                  .astype(np.int32)),
+                 torch.from_numpy(rng.randint(0, 256, (4, *hw, 3))
+                                  .astype(np.uint8))]
+        draws = train_augment_draws(4, len(scales),
+                                    torch.Generator().manual_seed(1))
+        extents = None if true_hw is None else torch.tensor(true_hw)
+        outs = [apply_train_augment(
+            *(t.to(dev) for t in batch), *(d.to(dev) for d in draws),
+            (480, 640), scales, *(t.to(dev) for t in stats),
+            true_hw=None if extents is None else extents.to(dev))
+            for dev in ("cuda", "cpu")]
+        (card_rgb, card_gt, card_x), (rgb, gt, x) = outs
+        assert torch.equal(card_gt.cpu(), gt)
+        assert (card_rgb.cpu() - rgb).abs().max().item() <= 1e-5
+        assert (card_x.cpu() - x).abs().max().item() <= 1e-5
