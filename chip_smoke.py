@@ -48,6 +48,27 @@ Phases, each printing JSON lines:
                    augmentation on the card against the CPU on one batch;
                    ms per step, augment ms, eval and checkpoint seconds,
                    checkpoint bytes, peak memory
+ 11. trav_kernels - both kernels at the 8 fused-MLP shapes of
+                   DFormerTrav-Base at 480x640 in an FSS step's encoder
+                   pass of 12 images (bf16): limits, bit-equal reruns,
+                   times, bounds, torch.matmul yardsticks
+ 12. trav        - entry.build_trav on the Trav config (DFormerTrav-Base +
+                   ham, bf16): bs2 requests of seed-made rgb and lidar, the
+                   pseudo-depth constant down its columns, ms per forward;
+                   then tools.train_trav.run on in-memory rows (one epoch
+                   of 2 bs2 steps, pseudo-labels and their manifest for 4
+                   images); launches counted
+ 13. fss         - tools.train_trav_fss.run on in-memory episodes (batch 2
+                   x (5 + 1), 480x640, bf16): 2 epochs of 3 steps and 2
+                   evaluation episodes each, a rescue checkpoint at the
+                   start of epoch 3, then --class-episodes with the
+                   contrastive term for one epoch; frozen parameters
+                   unchanged, trainable ones updated (but query2), the
+                   rescue file's logits in a fresh model, launches; ms per
+                   FSS step and per eval episode, peak memory
+ 14. fss_cpu_vs_card - one fp32 FSS step at 64x96 on the card (both
+                   kernels) and on the CPU (plain versions): loss and
+                   gradients
 Then the kernel summary line, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; nothing is caught. Exits non-zero
 before printing any result when CUDA is unavailable.
@@ -117,6 +138,16 @@ EVAL_CPU_VS_CARD_ACC = 1e-4
 FIT_ITERS = 4
 FIT_VAL_IMAGES = 4
 AUGMENT_LIMIT = 1e-5
+# the Trav phases: DFormerTrav-Base + ham from the Trav config at 480x640,
+# bf16; FSS episodes of batch 2 x (5 shots + 1 query) = 12 images per
+# encoder pass; the tool runs' epochs, episodes and pseudo-labelled images;
+# the narrow fp32 FSS step card vs CPU (summation order only, as above)
+TRAV_CONFIG = "local_configs.Trav.DFormer_Base"
+TRAV_BATCH = 12
+FSS_STEPS_PER_EPOCH = 3
+FSS_EVAL_EPISODES = 2
+TRAV_PSEUDO_IMAGES = 4
+FSS_CPU_VS_CARD_REL = 1e-4
 
 
 def emit(obj):
@@ -151,13 +182,14 @@ def time_ms(fn, reps=20, warmup=3, calls=5):
     return statistics.median(times)
 
 
-def mlp_shapes():
+def mlp_shapes(variant="DFormer-Large"):
     """(name, H, W, C, Ch, launches per forward) of every fused-MLP call of
-    DFormer-Large at 480x640: the main block mlp and the depth-stream mlp_e2
-    of each stage (the last block of stage 4 has no mlp_e2)."""
+    the variant's encoder at 480x640: the main block mlp and the
+    depth-stream mlp_e2 of each stage (the last block of stage 4 has no
+    mlp_e2)."""
     from dformer_torch.models.encoder import VARIANTS
 
-    spec = VARIANTS["DFormer-Large"]
+    spec = VARIANTS[variant]
     out = []
     for i in range(4):
         h, w = HW[0] // (4 * 2 ** i), HW[1] // (4 * 2 ** i)
@@ -272,12 +304,12 @@ def phase_build():
           "build_dir": str(build.BUILD_DIR)})
 
 
-def phase_kernels(smi):
-    """Every fused-MLP shape of the main path in bf16, plus one fp32 shape:
-    kernel vs plain version, a second run on the same inputs (bit-equal),
-    times and bound, the kernel's plan and occupancy, and torch.matmul of
-    its two products over the B*H*W pixels (no halo) as their yardstick.
-    Returns the per-shape rows."""
+def phase_kernels(smi, cases=None, phase="kernels"):
+    """Every fused-MLP shape of the main path in bf16, plus one fp32 shape
+    (or the given `cases`): kernel vs plain version, a second run on the
+    same inputs (bit-equal), times and bound, the kernel's plan and
+    occupancy, and torch.matmul of its two products over the B*H*W pixels
+    (no halo) as their yardstick. Returns the per-shape rows."""
     import torch
 
     from dformer_torch.kernels.fused_mlp import (card_forward_plan,
@@ -285,7 +317,8 @@ def phase_kernels(smi):
                                                  fused_mlp_reference)
 
     rows, misses = [], []
-    for i, (name, B, H, W, C, Ch, n, dtype) in enumerate(kernel_cases()):
+    for i, (name, B, H, W, C, Ch, n, dtype) in enumerate(
+            cases or kernel_cases()):
         args = mlp_inputs(B, H, W, C, Ch, dtype, seed=i)
         got = fused_mlp(*args)
         check(torch.equal(got, fused_mlp(*args)),
@@ -308,7 +341,7 @@ def phase_kernels(smi):
             time_ms(lambda: torch.matmul(y, args[3]), reps=10)
             + time_ms(lambda: torch.matmul(g, args[7]), reps=10))
         del y, g
-        row = {"phase": "kernels", "kernel": "fused_mlp_fwd", "shape": name,
+        row = {"phase": phase, "kernel": "fused_mlp_fwd", "shape": name,
                "B": B, "H": H, "W": W, "C": C, "Ch": Ch,
                "dtype": str(dtype).replace("torch.", ""),
                "launches_per_forward": n, "max_abs_err": err,
@@ -330,9 +363,9 @@ def phase_kernels(smi):
     return rows
 
 
-def phase_kernels_bwd(smi):
-    """The backward kernel at the same shapes and at the widths of the
-    other variants (`variant_bwd_cases`): all nine outputs against the
+def phase_kernels_bwd(smi, cases, phase="kernels"):
+    """The backward kernel at the given shapes (the main path's and the
+    other variants' widths, `variant_bwd_cases`): all nine outputs against the
     plain backward, times and bound, and a second run on the same inputs
     (all nine outputs must be bit-equal). Each of the call's four launches
     timed by CUDA events, the blocks per SM of K1 and K3, and torch.matmul
@@ -344,8 +377,7 @@ def phase_kernels_bwd(smi):
         fused_mlp_backward, fused_mlp_backward_reference)
 
     rows, misses = [], []
-    for i, (name, B, H, W, C, Ch, n, dtype) in enumerate(
-            kernel_cases() + variant_bwd_cases()):
+    for i, (name, B, H, W, C, Ch, n, dtype) in enumerate(cases):
         args = mlp_inputs(B, H, W, C, Ch, dtype, seed=100 + i)
         gen = torch.Generator(device="cuda").manual_seed(200 + i)
         g = torch.randn(B, H, W, C, generator=gen, device="cuda").to(dtype)
@@ -385,7 +417,7 @@ def phase_kernels_bwd(smi):
         del a_w, b_w
         occ = backward_occupancy(C, dtype)
         plan = card_backward_plan(B, H, W, C, Ch, dtype)
-        row = {"phase": "kernels", "kernel": "fused_mlp_bwd", "shape": name,
+        row = {"phase": phase, "kernel": "fused_mlp_bwd", "shape": name,
                "B": B, "H": H, "W": W, "C": C, "Ch": Ch,
                "dtype": str(dtype).replace("torch.", ""),
                "launches_per_step": n, "max_rel_err": errs,
@@ -1091,18 +1123,470 @@ def phase_fit(smi):
     return launches
 
 
+def trav_cases():
+    """(name, B, H, W, C, Ch, launches per encoder pass, bf16): every
+    fused-MLP shape of DFormerTrav-Base at 480x640 in an FSS step's encoder
+    pass of TRAV_BATCH images."""
+    import torch
+
+    return [(f"trav.{name}", TRAV_BATCH, h, w, c, ch, n, torch.bfloat16)
+            for name, h, w, c, ch, n in mlp_shapes("DFormer-Base")]
+
+
+def phase_trav_kernels(smi):
+    """Both kernels at the Trav path's 8 shapes (B 12, bf16) against their
+    plain versions, bit-equal on rerun, with times, bounds and yardsticks.
+    Returns (forward rows, backward rows)."""
+    cases = trav_cases()
+    return (phase_kernels(smi, cases, "trav_kernels"),
+            phase_kernels_bwd(smi, cases, "trav_kernels"))
+
+
+class MemoryTrav:
+    """Trav rows made in memory from a seed, in the item layout of
+    `data.trav.TravRGBDLabeledDataset`: uint8 BGR image, a 360-beam scan of
+    ranges in metres, labels 0/1 below and above a horizon row (none when
+    `labelled` is False), and the paths the pseudo-label manifest names."""
+
+    def __init__(self, n, hw, seed, labelled=True):
+        self.n, self.hw, self.seed, self.labelled = n, hw, seed, labelled
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rng = np.random.RandomState(self.seed * 1000003 + i)
+        item = dict(rgb=rng.randint(0, 256, self.hw + (3,), np.uint8),
+                    laser=(rng.rand(360) * 8).astype(np.float32),
+                    rgb_path=f"memory/images/{self.seed}_{i}.png",
+                    depth_path=f"memory/scans/{self.seed}_{i}.pkl",
+                    n=self.n)
+        if self.labelled:
+            item["gt"] = _horizon_labels(rng, self.hw)
+        return item
+
+
+def _horizon_labels(rng, hw):
+    """1 (traversable) below a random horizon row, 0 above, a few pixels
+    255 (ignored)."""
+    gt = (np.arange(hw[0])[:, None] >= rng.randint(hw[0] // 4, hw[0]))
+    gt = np.broadcast_to(gt, hw).astype(np.int32)
+    return np.where(rng.rand(*hw) < 0.01, 255, gt).astype(np.int32)
+
+
+class MemoryEpisodes:
+    """Episodes made in memory, in the item layout of
+    `data.trav.FewShotTravDatasetBinary` (`class_grouped`: of
+    `FewShotTravRGBDDataset`, one class per item), drawn from
+    `RandomState(seed * 1000003 + index)` after `set_epoch(seed)`."""
+
+    def __init__(self, n, hw, shots, class_grouped=False, queries=1):
+        self.n, self.hw, self.shots = n, hw, shots
+        self.class_grouped, self.queries = class_grouped, queries
+        self.seed = 0
+
+    def __len__(self):
+        return self.n
+
+    def set_epoch(self, seed):
+        self.seed = seed
+
+    def __getitem__(self, index):
+        rng = np.random.RandomState(self.seed * 1000003 + index)
+        n = self.shots + self.queries
+
+        def draw(k):
+            return (rng.randint(0, 256, (k,) + self.hw + (3,), np.uint8),
+                    np.stack([_horizon_labels(rng, self.hw)
+                              for _ in range(k)]),
+                    (rng.rand(k, 360) * 8).astype(np.float32))
+
+        img, gt, scan = draw(n)
+        S = self.shots
+        if self.class_grouped:
+            return dict(s_imgs=img[:S], s_masks=gt[:S], s_depths=scan[:S],
+                        q_imgs=img[S:], q_masks=gt[S:], q_depths=scan[S:],
+                        cls=index % 2)
+        return dict(s_img=img[:S], s_gt=gt[:S], s_depth=scan[:S],
+                    q_img=img[S], q_gt=gt[S], q_depth=scan[S],
+                    fn=f"memory/episode_{index}")
+
+
+def trav_cfg(root, name):
+    from dformer_torch.configs import load_config
+
+    cfg = load_config(TRAV_CONFIG)
+    cfg.update(log_dir_base=f"{root}/{name}", save_dir=f"{root}/pseudo")
+    return cfg
+
+
+def phase_trav(smi):
+    """The Trav serving and semi-supervised paths: `entry.build_trav` on
+    the Trav config (DFormerTrav-Base + ham, 480x640, bf16), bs2 requests
+    of seed-made rgb and lidar through `entry.infer`, the pseudo-depth
+    constant down its columns; then `tools.train_trav.run` on in-memory
+    rows: one epoch of 2 bs2 steps, pseudo-labels and the manifest for
+    TRAV_PSEUDO_IMAGES images. Returns the forward and backward launches
+    {requests, train_trav}."""
+    import csv
+    import tempfile
+
+    import torch
+
+    from dformer_torch import entry
+    from dformer_torch.configs import TRAV_LIDAR_MEAN, TRAV_LIDAR_STD
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+    from dformer_torch.tools import train_trav
+
+    per_pass = sum(n for *_, n in mlp_shapes("DFormer-Base"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as root:
+        cfg = trav_cfg(root, "serve")
+        hw = (cfg.image_height, cfg.image_width)
+        model = entry.build_trav(cfg, torch.bfloat16, "cuda", seed=0)
+        rng = np.random.RandomState(20)
+        requests = [
+            (torch.from_numpy(rng.randn(2, *hw, 3).astype(np.float32)).cuda(),
+             torch.from_numpy(((rng.rand(2, 360) * 8 - TRAV_LIDAR_MEAN)
+                               / TRAV_LIDAR_STD).astype(np.float32)).cuda())
+            for _ in range(3)]
+        entry.infer(model, *requests[0])  # warm-up
+        torch.cuda.synchronize()
+        fused_mlp.launches = 0
+        for rgb, lidar in requests:
+            labels = entry.infer(model, rgb, lidar)
+            check(tuple(labels.shape) == (2, *hw)
+                  and 0 <= labels.min().item() and labels.max().item() < 2,
+                  f"trav labels {tuple(labels.shape)}")
+        torch.cuda.synchronize()
+        fwd_requests = fused_mlp.launches
+        check(fwd_requests == per_pass * len(requests),
+              f"trav: {fwd_requests} forward launches in {len(requests)} "
+              f"requests, expected {per_pass} per forward")
+        with torch.inference_mode():
+            logits = model(*requests[0])
+            depth = model.encoder_backbone.attn_expand_e(requests[0][1])
+        check(bool(torch.isfinite(logits).all()), "trav: non-finite logits")
+        check(tuple(depth.shape) == (2, *hw, 1)
+              and torch.equal(depth, depth[:, :1].expand_as(depth)),
+              "trav: pseudo-depth not constant down its columns")
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            entry.infer(model, *requests[0])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak_serve = torch.cuda.max_memory_allocated() / 2 ** 30
+        del model, logits, depth
+
+        # the semi-supervised tool: supervised epoch, then pseudo-labels
+        cfg = trav_cfg(root, "train_trav")
+        datasets = (MemoryTrav(4, hw, seed=21),
+                    MemoryTrav(TRAV_PSEUDO_IMAGES, hw, seed=22,
+                               labelled=False))
+        torch.cuda.reset_peak_memory_stats()
+        fused_mlp.launches = fused_mlp.backward_launches = 0
+        t0 = time.perf_counter()
+        out = train_trav.run(cfg, train_trav.parse_args(["--epochs=1"]),
+                             datasets=datasets)
+        run_s = time.perf_counter() - t0
+        tool = (fused_mlp.launches, fused_mlp.backward_launches)
+        steps = 4 // cfg.batch_size
+        check(out["step"] == steps and np.isfinite(out["losses"][1]),
+              f"train_trav: step {out['step']}, losses {out['losses']}")
+        check(tool == ((steps + TRAV_PSEUDO_IMAGES) * per_pass,
+                       steps * per_pass),
+              f"train_trav: {tool} forward and backward launches")
+        with open(out["csv_path"], newline="") as f:
+            rows = list(csv.DictReader(f))
+        check(len(rows) == TRAV_PSEUDO_IMAGES
+              and list(rows[0]) == ["image", "depth", "label"],
+              f"train_trav: manifest {rows[:1]}")
+        for row in rows:
+            mask = np.load(row["label"])
+            check(mask.dtype == np.uint8 and mask.shape == hw
+                  and set(np.unique(mask)) <= {0, 1},
+                  f"train_trav: mask {row['label']}")
+        peak_tool = torch.cuda.max_memory_allocated() / 2 ** 30
+        epoch_s, label_s = out["epoch_seconds"][1], out["label_seconds"]
+        del out
+    emit({"phase": "trav", "model": "DFormerTrav-Base+LightHamHead",
+          "config": TRAV_CONFIG, "batch": 2, "hw": list(hw),
+          "dtype": "bfloat16", "ms_per_forward": statistics.median(times),
+          "ms_each_timed": times,
+          "fused_mlp_launches_per_forward": fwd_requests / len(requests),
+          "pseudo_depth_constant_down_columns": True,
+          "peak_mem_gib_serving": peak_serve,
+          "train_trav_steps": steps, "train_trav_batch": cfg.batch_size,
+          "train_trav_epoch_s": epoch_s,
+          "train_trav_ms_per_step": epoch_s * 1e3 / steps,
+          "pseudo_label_s": label_s, "train_trav_run_s": run_s,
+          "train_trav_launches": {"forward": tool[0], "backward": tool[1]},
+          "pseudo_label_images": TRAV_PSEUDO_IMAGES,
+          "peak_mem_gib_train_trav": peak_tool, "card": smi})
+    return {"requests": (fwd_requests, 0), "train_trav": tool}
+
+
+def phase_fss(smi):
+    """The few-shot path: `tools.train_trav_fss.run` on the Trav config
+    (480x640, bf16, batch 2 x (5 + 1)) over in-memory episodes: 2 epochs
+    of FSS_STEPS_PER_EPOCH steps, FSS_EVAL_EPISODES evaluation episodes
+    after each, a preemption requested at the start of epoch 3 (the rescue
+    checkpoint holds the trained state); then --class-episodes with the
+    contrastive term for one epoch; then the step and the evaluation
+    episode timed through `entry.fss_steps` and `fss_evaluate`. Checks
+    losses, launches, the frozen and the trained parameters, the kept
+    checkpoints and the rescue file's logits in a fresh model. Returns the
+    forward and backward launches {binary, class_episodes}."""
+    import tempfile
+
+    import torch
+
+    from dformer_torch import entry
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+    from dformer_torch.runtime.preempt import StopAfter
+    from dformer_torch.tools import train_trav_fss
+    from dformer_torch.train.fss import FSSTrainer, fss_evaluate
+    from dformer_torch.train.loop import coverage_flags
+    from dformer_torch.utils.checkpoint import load_checkpoint
+
+    per_pass = sum(n for *_, n in mlp_shapes("DFormer-Base"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as root:
+        cfg = trav_cfg(root, "fss")
+        hw, B, S = (cfg.image_height, cfg.image_width), cfg.batch_size, \
+            cfg.shots
+        check(B * (S + 1) == TRAV_BATCH, f"episode batch {B} x ({S} + 1)")
+        cfg.update(epochs=3, eval_iterations=FSS_EVAL_EPISODES)
+        datasets = (MemoryEpisodes(B * FSS_STEPS_PER_EPOCH, hw, S),
+                    MemoryEpisodes(FSS_EVAL_EPISODES, hw, S))
+        init = entry.build_fss_training(cfg, torch.bfloat16, "cuda",
+                                        cfg.seed)[0]
+        params0 = {n: p.detach().clone() for n, p in init.named_parameters()}
+        del init
+        fused_mlp.launches = fused_mlp.backward_launches = 0
+        t0 = time.perf_counter()
+        # guard reads: the start of epochs 1, 2 and 3; stop at the third
+        out = train_trav_fss.run(cfg, train_trav_fss.parse_args([]),
+                                 datasets=datasets, guard=StopAfter(3))
+        run_s = time.perf_counter() - t0
+        binary = (fused_mlp.launches, fused_mlp.backward_launches)
+        trainer = out["trainer"]
+        steps = 2 * FSS_STEPS_PER_EPOCH
+        check(trainer.step == steps, f"fss: step {trainer.step}")
+        check(binary == ((steps + 2 * FSS_EVAL_EPISODES) * per_pass,
+                         steps * per_pass),
+              f"fss: {binary} forward and backward launches, expected "
+              f"{per_pass} of each per step and {per_pass} per episode")
+        check(sorted(out["losses"]) == [1, 2]
+              and all(np.isfinite(v) for v in out["losses"].values()),
+              f"fss: losses {out['losses']}")
+        # frozen: bit-unchanged; trainable: an update in the optimizer's
+        # state (its first moment; at the warm-up's rates and the
+        # depth stream's small gradients many updates round away in fp32),
+        # all but query2, whose gradient is exactly 0
+        frozen = set(trainer.frozen)
+        _, updated = coverage_flags(trainer.model, trainer.optimizer)
+        moved, stuck = [], []
+        for (name, p), upd in zip(trainer.model.named_parameters(), updated):
+            same = torch.equal(p.detach(), params0[name])
+            if name in frozen:
+                check(same and not upd, f"fss: frozen {name} changed")
+                continue
+            if not upd:
+                stuck.append(name)
+            if not same:
+                moved.append(name)
+        check(stuck == ["encoder_backbone.attn_expand_e.query2"],
+              f"fss: trainable parameters with no update: {stuck}")
+        ckpt = out["checkpoints"]
+        rescue, epoch = ckpt.latest()
+        kept = sorted(n for *_, n in ckpt._existing())
+        check(epoch == 2 and f"epoch-2_miou_{round(out['best_miou'], 2)}.pth"
+              in kept, f"fss: kept {kept}")
+        rng = np.random.RandomState(23)
+        rgb = torch.from_numpy(rng.randn(2, *hw, 3).astype(np.float32)).cuda()
+        lidar = torch.from_numpy(rng.randn(2, 360).astype(np.float32)).cuda()
+        fresh = load_checkpoint(entry.build_trav(cfg, torch.bfloat16), rescue)
+        with torch.inference_mode():
+            logits_equal = torch.equal(fresh(rgb, lidar),
+                                       trainer.model.eval()(rgb, lidar))
+        check(logits_equal, "fss: the rescue checkpoint's logits differ")
+        binary_out = {k: out[k] for k in ("losses", "miou", "epoch_seconds",
+                                          "eval_seconds")}
+        del fresh, trainer, out, params0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # class-grouped episodes with the contrastive term, one epoch
+        cfg = trav_cfg(root, "fss_class")
+        cfg.update(epochs=1, eval_iterations=FSS_EVAL_EPISODES)
+        fused_mlp.launches = fused_mlp.backward_launches = 0
+        out = train_trav_fss.run(
+            cfg, train_trav_fss.parse_args(
+                ["--class-episodes", "--contrastive-weight=0.1"]),
+            datasets=(MemoryEpisodes(2, hw, S, class_grouped=True),
+                      datasets[1]))
+        grouped = (fused_mlp.launches, fused_mlp.backward_launches)
+        check(out["trainer"].step == 1
+              and np.isfinite(out["losses"][1])
+              and np.isfinite(out["contrastive"][1]),
+              f"fss class episodes: losses {out['losses']}, contrastive "
+              f"{out['contrastive']}")
+        check(grouped == ((1 + FSS_EVAL_EPISODES) * per_pass, per_pass),
+              f"fss class episodes: {grouped} launches")
+        class_out = {k: out[k] for k in ("losses", "contrastive", "miou")}
+        del out
+
+        # one step and one evaluation episode, timed
+        model, opt, sched, mask = entry.build_fss_training(
+            cfg, torch.bfloat16, "cuda", cfg.seed)
+        ft = FSSTrainer(model, opt, sched, cfg, mask, seed=cfg.seed)
+        ep = ft.prepare(epoch_batches(datasets[0], B)[0], 1, 0)
+        args = [ep[k] for k in ("s_img", "s_depth", "s_gt", "q_img",
+                                "q_depth", "q_gt")]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        entry.fss_steps(model, opt, sched, gen, [args])  # warm-up
+        step_ms = []
+        for k in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            entry.fss_steps(model, opt, sched, gen, [args], first_step=1 + k)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        val = [ft.prepare(b) for b in epoch_batches(datasets[1], 1)]
+        fss_evaluate(model, val[:1], cfg)  # warm-up
+        eval_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = fss_evaluate(model, val, cfg)
+            torch.cuda.synchronize()
+            eval_ms.append((time.perf_counter() - t0) * 1e3 / len(val))
+        check(int(m.hist.sum()) > 0, "fss: empty evaluation hist")
+        del model, opt, ft, ep, args, val
+    emit({"phase": "fss", "model": "DFormerTrav-Base+LightHamHead",
+          "config": TRAV_CONFIG, "episodes_per_step": B, "shots": S,
+          "images_per_step": TRAV_BATCH, "hw": list(hw), "dtype": "bfloat16",
+          "steps": steps, "binary": binary_out,
+          "ms_per_step": statistics.median(step_ms), "ms_each_step": step_ms,
+          "ms_per_eval_episode": statistics.median(eval_ms),
+          "ms_each_eval_episode": eval_ms, "run_s": run_s,
+          "launches_binary": {"forward": binary[0], "backward": binary[1]},
+          "launches_class_episodes": {"forward": grouped[0],
+                                      "backward": grouped[1]},
+          "fwd_launches_per_step": per_pass,
+          "bwd_launches_per_step": per_pass,
+          "frozen": len(frozen), "trainable_updated": len(updated)
+          - len(frozen) - len(stuck), "trainable_not_updated": stuck,
+          "trainable_changed_in_fp32": len(moved), "kept": kept,
+          "rescue_logits_equal": True,
+          "class_episodes": class_out, "peak_mem_gib": peak, "card": smi})
+    return {"binary": binary, "class_episodes": grouped}
+
+
+def epoch_batches(dataset, batch):
+    """The collated batches of one epoch of `dataset`, through the port's
+    loader."""
+    from dformer_torch.data.loader import Loader
+
+    return list(Loader(dataset, batch, drop_last=True))
+
+
+def phase_fss_cpu_vs_card(smi):
+    """One FSS step of DFormerTrav-Base + ham at 64x96 in fp32 (B 1, S 1,
+    the contrastive term on, LayerScales 1), on the card through both
+    kernels and on the CPU through the plain versions: same weights,
+    episode and NMF bases, DropPath and dropout off. Loss and every
+    trainable gradient within FSS_CPU_VS_CARD_REL relative (leaves whose
+    CPU gradient is below TRAIN_NULL_GRAD everywhere: rounding noise, not
+    compared)."""
+    import torch
+
+    from dformer_torch import entry
+    from dformer_torch.configs import load_config
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+    from dformer_torch.train.fss import fss_train_step
+
+    cfg = load_config(TRAV_CONFIG)
+    cfg.update(image_height=64, image_width=96, drop_path_rate=0.0,
+               pretrained_model=None, warm_up_epoch=0)
+    hw = (64, 96)
+    rng = np.random.RandomState(24)
+    episode = [torch.from_numpy(a) for a in (
+        rng.randn(1, 1, *hw, 3).astype(np.float32),
+        np.stack([[_horizon_labels(rng, hw)]]).astype(np.int64),
+        rng.randn(1, 1, 360).astype(np.float32),
+        rng.randn(1, *hw, 3).astype(np.float32),
+        _horizon_labels(rng, hw)[None].astype(np.int64),
+        rng.randn(1, 360).astype(np.float32))]
+    bases = torch.from_numpy(rng.rand(1, 512, 64).astype(np.float32))
+    bases = bases / torch.linalg.norm(bases, dim=1, keepdim=True)
+    out = {}
+    fused_mlp.launches = fused_mlp.backward_launches = 0
+    for device in ("cuda", "cpu"):
+        model, opt, sched, mask = entry.build_fss_training(cfg, None, device,
+                                                           seed=0)
+        model.decode_head.dropout.rate = 0.0
+        with torch.no_grad():  # LayerScales 1: every branch in the gradients
+            for name, p in model.named_parameters():
+                if "layer_scale" in name:
+                    p.fill_(1.0)
+        loss, con = fss_train_step(
+            model, opt, sched, 0, *(t.to(device) for t in episode),
+            torch.Generator(device=device).manual_seed(0),
+            bases=bases.to(device), contrastive_weight=0.1)
+        out[device] = (loss.item(), con.item(),
+                       {n: p.grad.cpu() for n, p in model.named_parameters()
+                        if mask[n]})
+        if device == "cuda":
+            launches = (fused_mlp.launches, fused_mlp.backward_launches)
+    per_pass = sum(n for *_, n in mlp_shapes("DFormer-Base"))
+    check(launches == (per_pass, per_pass),
+          f"fss cpu vs card: {launches} forward and backward launches on "
+          "the card")
+    (loss_card, con_card, g_card), (loss_cpu, con_cpu, g_cpu) = \
+        out["cuda"], out["cpu"]
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst, worst_name, skipped = 0.0, "", []
+    for name, want in g_cpu.items():
+        scale = want.abs().max().item()
+        if scale < TRAIN_NULL_GRAD:
+            skipped.append(name)
+            continue
+        rel = (g_card[name] - want).abs().max().item() / scale
+        if rel > worst:
+            worst, worst_name = rel, name
+    emit({"phase": "fss_cpu_vs_card", "model": "DFormerTrav-Base+LightHamHead",
+          "episodes": 1, "shots": 1, "hw": list(hw), "dtype": "float32",
+          "loss_card": loss_card, "loss_cpu": loss_cpu, "loss_rel": loss_rel,
+          "contrastive_card": con_card, "contrastive_cpu": con_cpu,
+          "max_grad_rel": worst, "max_grad_rel_leaf": worst_name,
+          "limit_rel": FSS_CPU_VS_CARD_REL, "trainable_leaves": len(g_cpu),
+          "null_gradient_leaves_skipped": skipped,
+          "fused_mlp_launches_each_way": per_pass, "card": smi})
+    check(loss_rel <= FSS_CPU_VS_CARD_REL, f"fss card vs CPU loss: {loss_rel}")
+    check(worst <= FSS_CPU_VS_CARD_REL,
+          f"fss card vs CPU gradient of {worst_name}: rel {worst}")
+    check(len(skipped) < len(g_cpu) // 10,
+          f"{len(skipped)} null-gradient leaves skipped")
+
+
 def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
-                   fit_launches):
+                   fit_launches, trav_rows, trav_launches, fss_launches):
     """One entry per kernel: times per forward or per train step (each
     shape's time times its launches, summed over the main-path shapes).
     `launches` are those of the serving path's run for the forward kernel
-    (its launches in the train steps, in each timed eval run and in the
-    train tool's first run beside them) and of the train path's counted
-    steps for the backward kernel (its launches in the train tool's first
-    run beside them); a
+    (its launches in the train steps, in each timed eval run, in the train
+    tool's first run and on the Trav paths beside them) and of the train
+    path's counted steps for the backward kernel (its launches in the train
+    tool's first run and on the Trav paths beside them); a
     backward call is four CUDA launches (K1-K4), whose times per step are
     listed, with torch.matmul of K3's two products beside K3; beside the
-    forward, torch.matmul of its two products."""
+    forward, torch.matmul of its two products. The `trav_*` keys are the
+    same sums over the 8 shapes of an FSS step's encoder pass (B 12)."""
     from dformer_torch.kernels.fused_mlp import (REPLACES, REPLACES_BWD,
                                                  SOURCE, SOURCE_BWD)
 
@@ -1122,6 +1606,16 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                 "bound_by": "operations" if ops >= nbytes else "bytes",
                 "library_ms": None, **extra}
 
+    def trav(rows, per, yardstick):
+        ops, nbytes = total(rows, per, "ops_ms"), total(rows, per, "bytes_ms")
+        return {"trav_ms_per_fss_step": total(rows, per, "ms"),
+                "trav_plain_ms_per_fss_step": total(rows, per, "plain_ms"),
+                "trav_bound_ms_per_fss_step": max(ops, nbytes),
+                "trav_bound_by": "operations" if ops >= nbytes else "bytes",
+                "trav_yardstick_ms_per_fss_step": total(rows, per, yardstick),
+                "trav_max_abs_err": max(r["max_abs_err"] for r in rows),
+                "trav_launches_per_fss_step": sum(r[per] for r in rows)}
+
     per = "launches_per_step"
     stages = {k: total(rows_bwd, per, "stage_ms", k)
               for k in rows_bwd[0]["stage_ms"]}
@@ -1132,14 +1626,25 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                   "launches_in_fit": fit_launches[0],
                   "launches_in_eval": {r["mode"]: r["fused_mlp_launches"]
                                        for r in eval_rows},
+                  "launches_in_trav": {k: v[0]
+                                       for k, v in trav_launches.items()},
+                  "launches_in_fss": {k: v[0]
+                                      for k, v in fss_launches.items()},
                   "products_library_ms": total(rows, "launches_per_forward",
-                                               "products_library_ms")}),
+                                               "products_library_ms"),
+                  **trav(trav_rows[0], "launches_per_forward",
+                         "products_library_ms")}),
         entry_of("fused_mlp_bwd", SOURCE_BWD, REPLACES_BWD, rows_bwd, per,
                  train_launches[1],
                  {"launches_in_fit": fit_launches[1],
+                  "launches_in_trav": {k: v[1]
+                                       for k, v in trav_launches.items()},
+                  "launches_in_fss": {k: v[1]
+                                      for k, v in fss_launches.items()},
                   "stage_ms": stages,
                   "wgrad_library_ms": total(rows_bwd, per,
-                                            "wgrad_library_ms")})]}
+                                            "wgrad_library_ms"),
+                  **trav(trav_rows[1], per, "wgrad_library_ms")})]}
 
 
 def main():
@@ -1152,7 +1657,7 @@ def main():
     smi = phase_device()
     phase_build()
     rows = phase_kernels(smi)
-    rows_bwd = phase_kernels_bwd(smi)
+    rows_bwd = phase_kernels_bwd(smi, kernel_cases() + variant_bwd_cases())
     model, launches = phase_slice(smi)
     phase_cpu_vs_card(model, smi)
     del model
@@ -1161,8 +1666,12 @@ def main():
     eval_rows = phase_eval(smi)
     phase_eval_cpu_vs_card(smi)
     fit_launches = phase_fit(smi)
+    trav_rows = phase_trav_kernels(smi)
+    trav_launches = phase_trav(smi)
+    fss_launches = phase_fss(smi)
+    phase_fss_cpu_vs_card(smi)
     emit(kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
-                        fit_launches))
+                        fit_launches, trav_rows, trav_launches, fss_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

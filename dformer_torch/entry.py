@@ -2,12 +2,14 @@
 segmentation requests, take training steps (counterpart of
 `__graft_entry__._build` and of the forward and the train step that
 `bench.py` times), evaluate a loaded config (counterpart of what
-`tools/eval.py` assembles) and set up the training of a loaded config (what
-`tools/train.py` assembles).
+`tools/eval.py` assembles), set up the training of a loaded config (what
+`tools/train.py` assembles), and serve and fine-tune the Trav config
+(`build_trav`, `build_fss_training`, `fss_steps`: what `tools/train_trav.py`
+and `tools/train_trav_fss.py` assemble).
 
 The card is the default device. `build`, `build_trainer`,
-`build_evaluator` and `build_training` raise if CUDA is unavailable unless
-the caller passes device="cpu".
+`build_evaluator`, `build_training`, `build_trav` and `build_fss_training`
+raise if CUDA is unavailable unless the caller passes device="cpu".
 """
 
 import os
@@ -22,6 +24,7 @@ from dformer_torch.data.loader import device_val_batches
 from dformer_torch.eval.evaluate import Evaluator
 from dformer_torch.kernels.fused_mlp import fused_mlp
 from dformer_torch.models.builder import EncoderDecoder, build_model
+from dformer_torch.train.fss import fss_train_step, fss_trainable_mask
 from dformer_torch.train.loop import train_step
 from dformer_torch.train.optim import (make_optimizer, make_schedule,
                                        trainable_mask_from_matched)
@@ -79,6 +82,11 @@ def build(backbone: str = "DFormer-Large", hw: Tuple[int, int] = (480, 640),
                    decoder_embed_dim=512, drop_path_rate=drop_path_rate,
                    aux_rate=0.0, bn_eps=bn_eps, bn_momentum=bn_momentum,
                    image_height=hw[0], image_width=hw[1])
+    return _serving_model(cfg, dtype, device, seed)
+
+
+def _serving_model(cfg: AttrDict, dtype, device, seed: int) -> EncoderDecoder:
+    """`build`'s weights for a config, in eval mode on `device`."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = build_model(cfg, device="cpu", dtype=dtype)
@@ -98,8 +106,9 @@ def build(backbone: str = "DFormer-Large", hw: Tuple[int, int] = (480, 640),
 @torch.inference_mode()
 def infer(model: EncoderDecoder, rgb: torch.Tensor, modal_x: torch.Tensor
           ) -> torch.Tensor:
-    """One request: rgb [B,H,W,3] and modal_x [B,H,W,C] (NHWC, fp32) on the
-    model's device -> int32 labels [B,H,W], the argmax of the logits."""
+    """One request: rgb [B,H,W,3] and modal_x [B,H,W,C] (NHWC, fp32; for a
+    Trav model a [B,360] lidar scan) on the model's device -> int32 labels
+    [B,H,W], the argmax of the logits."""
     logits = model(rgb, modal_x)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
@@ -185,9 +194,7 @@ def build_training(cfg: AttrDict, dtype: Optional[torch.dtype] = torch.bfloat16,
     poly rate of `cfg`."""
     _require_ham(cfg)
     _use_device("entry.build_training", device)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        model = build_model(cfg, device="cpu", dtype=dtype)
+    model = _init_model(cfg, dtype, seed)
     matched = []
     pretrained = cfg.get("pretrained_model")
     if pretrained and os.path.exists(pretrained):
@@ -201,6 +208,80 @@ def build_training(cfg: AttrDict, dtype: Optional[torch.dtype] = torch.bfloat16,
     model = model.to(device).train()
     mask = trainable_mask_from_matched(model, matched) if matched else None
     return model, make_optimizer(cfg, model, mask), make_schedule(cfg), mask
+
+
+def _init_model(cfg: AttrDict, dtype: Optional[torch.dtype] = torch.bfloat16,
+               seed: int = 0) -> EncoderDecoder:
+    """The config's model on the CPU with the layers' own training init
+    (LayerScales 1e-6) drawn under `torch.manual_seed(seed)`, fp32
+    parameters computing in `dtype`: what training from scratch starts
+    from."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return build_model(cfg, device="cpu", dtype=dtype)
+
+
+def build_trav(cfg: AttrDict, dtype: Optional[torch.dtype] = torch.bfloat16,
+               device="cuda", seed: int = 0) -> EncoderDecoder:
+    """DFormerTrav-Base + LightHamHead of a Trav config
+    (`local_configs.Trav.DFormer_Base`) in eval mode, with `build`'s
+    weights from `seed` (LayerScales 1, BatchNorm statistics drawn). The
+    lidar expansion follows the config's image size. Serve it with
+    `infer(model, rgb [B,H,W,3], lidar [B,360])`."""
+    _require_ham(cfg)
+    _use_device("entry.build_trav", device)
+    if cfg.backbone != "DFormerTrav-Base":
+        raise ValueError(f"build_trav: backbone {cfg.backbone!r} is not "
+                         "DFormerTrav-Base")
+    return _serving_model(cfg, dtype, device, seed)
+
+
+def build_fss_training(cfg: AttrDict,
+                       dtype: Optional[torch.dtype] = torch.bfloat16,
+                       device="cuda", seed: int = 0, logger=None
+                       ) -> Tuple[EncoderDecoder, torch.optim.Optimizer,
+                                  Callable[[int], float], Dict[str, bool]]:
+    """(model in train mode, optimizer, schedule step -> lr, trainable
+    mask) of the few-shot recipe for a Trav config, as
+    `tools/train_trav_fss.py` assembles them.
+
+    The model is drawn as `build_training`'s; when `cfg.pretrained_model`
+    names a file that exists, the encoder (lidar expansion and body) is
+    loaded from it, but nothing is frozen by the loaded names:
+    `fss_trainable_mask` decides (the expansion, stage 0 and the decoder
+    train). The optimizer holds the trainable parameters only."""
+    _require_ham(cfg)
+    _use_device("entry.build_fss_training", device)
+    model = _init_model(cfg, dtype, seed)
+    pretrained = cfg.get("pretrained_model")
+    if pretrained and os.path.exists(pretrained):
+        matched = load_pretrained_encoder(model, pretrained)
+        if logger:
+            logger.info(f"loaded pretrained Trav encoder {pretrained}: "
+                        f"{len(matched)} parameters")
+    elif pretrained and logger:
+        logger.info(f"pretrained model {pretrained} not found; training "
+                    "from scratch")
+    model = model.to(device).train()
+    mask = fss_trainable_mask(model)
+    return model, make_optimizer(cfg, model, mask), make_schedule(cfg), mask
+
+
+def fss_steps(model: EncoderDecoder, optimizer: torch.optim.Optimizer,
+              schedule: Callable[[int], float], generator: torch.Generator,
+              episodes: Sequence[Tuple[torch.Tensor, ...]],
+              first_step: int = 0, ignore_index: int = 255) -> List[float]:
+    """One FSS optimizer step per episode batch (s_rgb [B,S,H,W,3], s_lidar
+    [B,S,360], s_labels [B,S,H,W], q_rgb [B,H,W,3], q_lidar [B,360],
+    q_labels [B,H,W]; fp32 images and scans normalised, integer labels, on
+    the model's device), steps `first_step`, `first_step` + 1, ...;
+    returns the losses."""
+    losses = [fss_train_step(model, optimizer, schedule, first_step + i,
+                             s_rgb, s_gt, s_lidar, q_rgb, q_gt, q_lidar,
+                             generator, background=ignore_index)
+              for i, (s_rgb, s_lidar, s_gt, q_rgb, q_lidar, q_gt)
+              in enumerate(episodes)]
+    return [float(loss) for loss in losses]
 
 
 def msf_group(backbone: str, num_classes: int, rgb: torch.Tensor,

@@ -1,21 +1,25 @@
-"""Model assembly: backbone + decode head (counterpart of
-`dformer_tpu/models/builder.py`, ham path).
+"""Model assembly: backbone + decode head, plus the few-shot prototype
+forward (counterpart of `dformer_tpu/models/builder.py`, ham path).
 
 `EncoderDecoder.forward` returns full-resolution NHWC logits, bilinearly
 upsampled with align_corners=False. In train mode (`model.train()`) the
 BatchNorms use batch statistics, DropPath and dropout draw from the
 `generator` argument, and the NMF draws fresh bases from it.
+`meta_forward` is the 1-way few-shot episode forward of the Trav recipe.
 """
 
 import contextlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from dformer_torch.models.decoders.ham import LightHamHead
 from dformer_torch.models.encoder import VARIANTS, DFormer
+from dformer_torch.models.trav import DFormerTrav
 from dformer_torch.ops.resize import resize_bilinear
+
+TRAV_BACKBONE = "DFormerTrav-Base"
 
 
 class EncoderDecoder(nn.Module):
@@ -23,12 +27,13 @@ class EncoderDecoder(nn.Module):
                  num_classes: int = 40, decoder_embed_dim: int = 512,
                  drop_path_rate: float = 0.1, aux_rate: float = 0.0,
                  bn_eps: float = 1e-3, bn_momentum: float = 0.1,
+                 temperature: float = 1.0, alpha: float = 0.5,
+                 image_hw: Tuple[int, int] = (480, 640),
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if backbone not in VARIANTS:
-            raise NotImplementedError(
-                f"backbone {backbone!r} is not ported yet (ROADMAP.md "
-                f"Queue 1, item 11: Trav and FSS)")
+        if backbone not in VARIANTS and backbone != TRAV_BACKBONE:
+            raise ValueError(f"unknown backbone {backbone!r}; known: "
+                             f"{', '.join(sorted(VARIANTS))}, {TRAV_BACKBONE}")
         if decoder != "ham":
             raise NotImplementedError(
                 f"decoder {decoder!r} is not ported yet (ROADMAP.md "
@@ -37,10 +42,19 @@ class EncoderDecoder(nn.Module):
             raise NotImplementedError(
                 "the FCN aux head is not ported yet (ROADMAP.md Queue 1, "
                 "item 10: remaining decoders)")
-        spec = VARIANTS[backbone]
         self.dtype = dtype
-        self.encoder_backbone = DFormer(drop_path_rate=drop_path_rate,
-                                        dtype=dtype, **spec)
+        # the few-shot fusion: softmax temperature of the prototype
+        # similarities, weight of the decoder logits against them
+        self.temperature, self.alpha = temperature, alpha
+        if backbone == TRAV_BACKBONE:
+            spec = VARIANTS["DFormer-Base"]
+            self.encoder_backbone = DFormerTrav(
+                drop_path_rate=drop_path_rate, expand_hw=tuple(image_hw),
+                dtype=dtype)
+        else:
+            spec = VARIANTS[backbone]
+            self.encoder_backbone = DFormer(drop_path_rate=drop_path_rate,
+                                            dtype=dtype, **spec)
         self.decode_head = LightHamHead(
             in_channels=spec["dims"][1:], in_index=(1, 2, 3),
             channels=decoder_embed_dim, num_classes=num_classes,
@@ -68,6 +82,65 @@ class EncoderDecoder(nn.Module):
         aux head (the constructor refuses the others), so aux is None."""
         return self.forward(rgb, modal_x, bases, generator), None
 
+    # ---- few-shot segmentation ----
+
+    @staticmethod
+    def _masked_proto(feat, mask):
+        """feat [N,h,w,C]; mask [N,h,w] bool -> [N, C] masked means."""
+        m = mask[..., None].to(feat.dtype)
+        return (feat * m).sum((1, 2)) / (m.sum((1, 2)) + 1e-5)
+
+    def meta_forward(self, s_rgb, s_depth, s_mask, q_rgb, q_depth,
+                     bases: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
+                     return_episode: bool = False):
+        """1-way few-shot episode forward.
+
+        s_rgb [B,S,H,W,3]; s_depth [B,S,...] lidar or depth; s_mask [B,S,H,W]
+        labels; q_rgb [B,H,W,3]; q_depth [B,...]. The B*S support and B
+        query images go through the encoder as one batch (in training its
+        BatchNorm statistics are those of the whole batch). Background and
+        foreground prototypes are the masked means of the top-stage support
+        features where the support mask, bilinearly resized to that grid,
+        is exactly 0 and exactly 1, averaged over the S shots. The query's
+        cosine similarities to them (x20) go through a softmax at
+        `temperature`, are resized to H x W and fused with the decoder's
+        logits as alpha * logits + (1 - alpha) * sim. Returns the fused
+        [B,H,W,2] logits; with `return_episode` also {"q_top", "fg", "bg"}
+        (query top-stage features, prototypes [B,C]) for the contrastive
+        term. bases: NMF bases [B,512,64] of the decoder, as in `forward`."""
+        B, S = s_rgb.shape[:2]
+        H, W = q_rgb.shape[1:3]
+        all_rgb = torch.cat([s_rgb.reshape(B * S, *s_rgb.shape[2:]), q_rgb])
+        all_depth = torch.cat([s_depth.reshape(B * S, *s_depth.shape[2:]),
+                               q_depth])
+        feats = self.encode(all_rgb, all_depth, generator)
+        top_s, top_q = feats[-1][:B * S], feats[-1][B * S:]
+        q_feats = [f[B * S:] for f in feats]
+
+        m = resize_bilinear(
+            s_mask.reshape(B * S, *s_mask.shape[2:])[..., None].float(),
+            top_s.shape[1:3])[..., 0]
+        fg = self._masked_proto(top_s, m == 1).reshape(B, S, -1).mean(1)
+        bg = self._masked_proto(top_s, m == 0).reshape(B, S, -1).mean(1)
+
+        def cos(feat, proto):  # feat [B,h,w,C], proto [B,C] -> [B,h,w]
+            fn = feat / (torch.linalg.vector_norm(feat, dim=-1, keepdim=True)
+                         + 1e-8)
+            pn = proto / (torch.linalg.vector_norm(proto, dim=-1,
+                                                   keepdim=True) + 1e-8)
+            return torch.einsum("bhwc,bc->bhw", fn, pn) * 20.0
+
+        sim = torch.stack([cos(top_q, bg), cos(top_q, fg)], dim=-1)
+        sim = torch.softmax(sim / self.temperature, dim=-1)
+        sim = resize_bilinear(sim, (H, W), align_corners=False)
+
+        logits = self.decode(q_feats, (H, W), bases, generator)
+        fused = self.alpha * logits + (1.0 - self.alpha) * sim
+        if return_episode:
+            return fused, dict(q_top=top_q, fg=fg, bg=bg)
+        return fused
+
 
 def build_model(cfg, device="cuda", dtype: Optional[torch.dtype] = None
                 ) -> EncoderDecoder:
@@ -83,7 +156,10 @@ def build_model(cfg, device="cuda", dtype: Optional[torch.dtype] = None
         decoder_embed_dim=cfg.get("decoder_embed_dim", 512),
         drop_path_rate=0.1 if drop_path_rate is None else drop_path_rate,
         aux_rate=cfg.get("aux_rate", 0.0), bn_eps=cfg.get("bn_eps", 1e-3),
-        bn_momentum=cfg.get("bn_momentum", 0.1), dtype=dtype)
+        bn_momentum=cfg.get("bn_momentum", 0.1),
+        temperature=cfg.get("temperature", 1.0), alpha=cfg.get("alpha", 0.5),
+        image_hw=(cfg.get("image_height", 480), cfg.get("image_width", 640)),
+        dtype=dtype)
     return model.to(device)
 
 

@@ -21,10 +21,11 @@ from dformer_torch.ops.schedule import warmup_poly_lr
 
 def decay_mask(model: nn.Module) -> dict:
     """{parameter name: True if it receives weight decay}. Decayed: conv and
-    linear weights of ndim >= 2. Never: biases, LayerNorm / BatchNorm
-    affines (1-D weights) and the LayerScales."""
-    return {name: name.endswith(".weight") and p.ndim >= 2
-            for name, p in model.named_parameters()}
+    linear weights and packed attention in-projections (`in_proj_weight`)
+    of ndim >= 2. Never: biases, LayerNorm / BatchNorm affines (1-D
+    weights), the LayerScales and learned queries."""
+    return {name: name.rsplit(".", 1)[-1] in ("weight", "in_proj_weight")
+            and p.ndim >= 2 for name, p in model.named_parameters()}
 
 
 def trainable_mask_from_matched(model: nn.Module, matched: Iterable[str],

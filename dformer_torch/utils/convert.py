@@ -3,9 +3,12 @@
 The inverse of the JAX package's torch -> flax converter (its `_store`
 rules in `dformer_tpu/utils/convert.py`): a Linear kernel [in, out] becomes
 weight [out, in]; a conv HWIO kernel becomes OIHW; `batch_stats` mean/var
-become running_mean/running_var; LayerNorm, BatchNorm affine and LayerScale
-params are copied as they are. Module paths map to the reference's key
-names, which the port's modules use.
+become running_mean/running_var; a packed MultiheadAttention in-projection
+`in_proj_weight` [E, 3E] becomes [3E, E]; LayerNorm, BatchNorm affine,
+LayerScale, learned queries and `in_proj_bias` are copied as they are.
+Module paths map to the reference's key names, which the port's modules
+use: in a DFormerTrav tree the flax `body` level under `encoder_backbone`
+is dropped, so the body's keys sit beside `attn_expand_e`.
 """
 
 import re
@@ -20,7 +23,9 @@ _STEM_SLOT = {"conv1": "0", "bn1": "1", "conv2": "3", "bn2": "4"}
 def _module_key(path):
     """Flax module path (tuple of names, leaf excluded) -> torch prefix."""
     path = list(path)
-    if path[0] == "encoder_backbone":
+    if path[:2] == ["encoder_backbone", "body"]:
+        del path[1]
+    if path[:1] == ["encoder_backbone"]:
         head, rest = path[1], path[2:]
         if head in ("stem", "stem_e"):
             name = "downsample_layers_e" if head == "stem_e" else \
@@ -41,6 +46,8 @@ def _leaf(name: str, arr: np.ndarray):
         if arr.ndim == 2:
             return "weight", arr.T
         return "weight", arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if name == "in_proj_weight":
+        return name, arr.T
     if name == "mean":
         return "running_mean", arr
     if name == "var":
@@ -58,7 +65,8 @@ def _walk(tree, path=()):
 
 def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
     """{"params": ..., "batch_stats": ...} flax tree (numpy leaves) of an
-    EncoderDecoder -> the port's `state_dict` (fp32 tensors)."""
+    EncoderDecoder (DFormerTrav included) or of one of its modules -> the
+    port's `state_dict` (fp32 tensors)."""
     sd = {}
     for collection in ("params", "batch_stats"):
         for path, value in _walk(variables.get(collection, {})):
@@ -67,6 +75,6 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
                 key, tensor = _module_key(path), arr
             else:
                 leaf, tensor = _leaf(path[-1], arr)
-                key = f"{_module_key(path[:-1])}.{leaf}"
+                key = ".".join(filter(None, (_module_key(path[:-1]), leaf)))
             sd[key] = torch.from_numpy(np.ascontiguousarray(tensor))
     return sd

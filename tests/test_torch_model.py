@@ -163,7 +163,8 @@ def test_port_imports_no_jax():
         "'dformer_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'dformer_tpu', 'local_configs'))\n"
+        "('jax', 'jaxlib', 'flax', 'dformer_tpu', 'local_configs', 'pandas',\n"
+        "'sklearn'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
