@@ -66,16 +66,35 @@ Phases, each printing JSON lines:
                    unchanged, trainable ones updated (but query2), the
                    rescue file's logits in a fresh model, launches; ms per
                    FSS step and per eval episode, peak memory
- 14. fss_cpu_vs_card - one fp32 FSS step at 64x96 on the card (both
-                   kernels) and on the CPU (plain versions): loss and
-                   gradients
+ 14. fss_cpu_vs_card - one FSS step at 64x96 on the CPU in float64 (the
+                   reference, plain versions, its ReLU branches recorded)
+                   and in fp32 on the card (both kernels, those branches
+                   replayed): loss and gradients, and a card run with TF32
+                   that the limit must refuse
+ 15. decoders    - DFormer-Large with each head of the JAX package
+                   (MLPDecoder, UPernet, deeplabv3+, nl; ham with the FCN
+                   aux head at aux_rate 0.4) at 480x640, bs8, bf16: 10
+                   timed forwards through entry.infer, 3 + 5 timed steps
+                   through entry.train_steps, peak memory, single-scale
+                   evaluation of 4 images whose labels equal the served
+                   forward's; 39 forward-kernel launches per forward, 39 +
+                   39 per step
+ 16. decoders_cpu_vs_card - each head's narrow forward + backward at
+                   bs8 against the float64 CPU, as in phase 14
+ 17. decoders_fit - tools.train.run on the NYUDepthv2 DFormer-Large config
+                   with UPernet and aux_rate 0.4: 2 epochs of 3 steps, an
+                   fp32 MSF + flip evaluation of 4 images, a rescue
+                   checkpoint whose logits a fresh model reproduces
 Then the kernel summary line, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; nothing is caught. Exits non-zero
 before printing any result when CUDA is unavailable.
 """
 
+import contextlib
+import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -141,13 +160,20 @@ AUGMENT_LIMIT = 1e-5
 # the Trav phases: DFormerTrav-Base + ham from the Trav config at 480x640,
 # bf16; FSS episodes of batch 2 x (5 shots + 1 query) = 12 images per
 # encoder pass; the tool runs' epochs, episodes and pseudo-labelled images;
-# the narrow fp32 FSS step card vs CPU (summation order only, as above)
+# the narrow FSS step, fp32 on the card against float64 on the CPU
 TRAV_CONFIG = "local_configs.Trav.DFormer_Base"
 TRAV_BATCH = 12
 FSS_STEPS_PER_EPOCH = 3
 FSS_EVAL_EPISODES = 2
 TRAV_PSEUDO_IMAGES = 4
 FSS_CPU_VS_CARD_REL = 1e-4
+FSS_CPU_VS_CARD_GRAD = 1e-4
+# ... but the lidar expansion's biases: small remainders (1e-3 to 7e-3 of
+# the largest gradient) of sums over every pixel of the pseudo-depth, which
+# fp32 on the CPU misses by up to 1.4e-4 of their max (an H100: 3.1e-5 and
+# 4.7e-5 in two runs)
+FSS_LIDAR_BIAS = r"encoder_backbone\.attn_expand_e\..*bias"
+FSS_LIDAR_BIAS_GRAD = 3e-4
 
 
 def emit(obj):
@@ -272,6 +298,98 @@ def mlp_bwd_bound(B, H, W, C, Ch, itemsize):
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes"), t_ops, t_bytes
+
+
+def grad_worst(got, want):
+    """(largest max|got - want| / max|want| over the leaves, its leaf, the
+    leaves skipped): leaves whose `want` stays below TRAIN_NULL_GRAD are
+    structurally null, rounding noise, and not compared."""
+    worst, worst_name, skipped = 0.0, "", []
+    for name, w in want.items():
+        scale = w.abs().max().item()
+        if scale < TRAIN_NULL_GRAD:
+            skipped.append(name)
+            continue
+        rel = (got[name] - w).abs().max().item() / scale
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name, skipped
+
+
+class ReluBranches:
+    """Pins every ReLU of one run to the branch (input > 0) that a reference
+    run took. A pre-activation within rounding of 0 can take either branch
+    in two evaluations; a flip moves its layer's weight gradient by one
+    pixel's share, and a train-mode BatchNorm's backward, whose output is a
+    small remainder, magnifies that (up to 7e-2 of a leaf's max between
+    the card and the CPU at the narrow size). With the branches pinned, two
+    runs differ by rounding only. In `record()` F.relu keeps each mask; in
+    `replay()` it multiplies by them in call order."""
+
+    def __init__(self):
+        self.masks = []
+
+    @contextlib.contextmanager
+    def _relu(self, fn):
+        import torch.nn.functional as F
+
+        plain = F.relu
+        F.relu = lambda x, inplace=False: fn(plain, x)
+        try:
+            yield
+        finally:
+            F.relu = plain
+
+    def record(self):
+        self.masks = []
+
+        def relu(plain, x):
+            self.masks.append((x > 0).cpu())
+            return plain(x)
+        return self._relu(relu)
+
+    @contextlib.contextmanager
+    def replay(self):
+        masks = iter(self.masks)
+
+        def relu(plain, x):
+            mask = next(masks)
+            check(mask.shape == x.shape, "ReLU branches: another graph")
+            return x * mask.to(x.device, x.dtype)
+        with self._relu(relu):
+            yield
+        check(next(masks, None) is None, "ReLU branches: masks left over")
+
+
+def against_float64(model, step):
+    """Runs `step(model copy, device, dtype) -> (loss, {leaf: gradient})`
+    on the CPU in float64, the reference, recording its ReLU branches, then
+    on the card in fp32 through the kernels and once more with TF32
+    products (the control), both with those branches pinned. Returns the
+    three results, the card run's (forward, backward) kernel launches and
+    the number of ReLUs pinned."""
+    import torch
+
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+
+    branches = ReluBranches()
+    with branches.record():
+        ref = step(copy.deepcopy(model).to("cpu", torch.float64), "cpu",
+                   torch.float64)
+    fused_mlp.launches = fused_mlp.backward_launches = 0
+    with branches.replay():
+        card = step(copy.deepcopy(model).cuda(), "cuda", torch.float32)
+    launches = (fused_mlp.launches, fused_mlp.backward_launches)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with branches.replay():
+            control = step(copy.deepcopy(model).cuda(), "cuda",
+                           torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return ref, card, control, launches, len(branches.masks)
 
 
 def phase_device():
@@ -664,15 +782,7 @@ def phase_train_cpu_vs_card(smi):
           f"expected {n_mlp} of each")
     (loss_card, grads_card), (loss_cpu, grads_cpu) = out["cuda"], out["cpu"]
     loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    worst, worst_name, skipped = 0.0, "", []
-    for name, want in grads_cpu.items():
-        scale = want.abs().max().item()
-        if scale < TRAIN_NULL_GRAD:
-            skipped.append(name)
-            continue
-        rel = (grads_card[name] - want).abs().max().item() / scale
-        if rel > worst:
-            worst, worst_name = rel, name
+    worst, worst_name, skipped = grad_worst(grads_card, grads_cpu)
     emit({"phase": "train_cpu_vs_card", "model": "DFormer-Narrow+LightHamHead",
           "batch": batch, "hw": list(hw), "dtype": "float32",
           "loss_card": loss_card, "loss_cpu": loss_cpu, "loss_rel": loss_rel,
@@ -1496,19 +1606,20 @@ def epoch_batches(dataset, batch):
 
 
 def phase_fss_cpu_vs_card(smi):
-    """One FSS step of DFormerTrav-Base + ham at 64x96 in fp32 (B 1, S 1,
-    the contrastive term on, LayerScales 1), on the card through both
-    kernels and on the CPU through the plain versions: same weights,
-    episode and NMF bases, DropPath and dropout off. Loss and every
-    trainable gradient within FSS_CPU_VS_CARD_REL relative (leaves whose
-    CPU gradient is below TRAIN_NULL_GRAD everywhere: rounding noise, not
-    compared)."""
+    """One FSS step of DFormerTrav-Base + ham at 64x96 (B 1, S 1, the
+    contrastive term on, LayerScales 1), same weights, episode and NMF
+    bases, DropPath and dropout off, through `against_float64`: the card's
+    fp32 loss within FSS_CPU_VS_CARD_REL relative of the float64 CPU's,
+    every trainable gradient within FSS_CPU_VS_CARD_GRAD of its leaf's max
+    (the FSS_LIDAR_BIAS leaves within FSS_LIDAR_BIAS_GRAD; leaves whose
+    reference gradient is below TRAIN_NULL_GRAD everywhere are rounding
+    noise, not compared), and the TF32 control outside the first limit."""
     import torch
 
     from dformer_torch import entry
     from dformer_torch.configs import load_config
-    from dformer_torch.kernels.fused_mlp import fused_mlp
     from dformer_torch.train.fss import fss_train_step
+    from dformer_torch.train.optim import make_optimizer
 
     cfg = load_config(TRAV_CONFIG)
     cfg.update(image_height=64, image_width=96, drop_path_rate=0.0,
@@ -1524,58 +1635,388 @@ def phase_fss_cpu_vs_card(smi):
         rng.randn(1, 360).astype(np.float32))]
     bases = torch.from_numpy(rng.rand(1, 512, 64).astype(np.float32))
     bases = bases / torch.linalg.norm(bases, dim=1, keepdim=True)
-    out = {}
-    fused_mlp.launches = fused_mlp.backward_launches = 0
-    for device in ("cuda", "cpu"):
-        model, opt, sched, mask = entry.build_fss_training(cfg, None, device,
-                                                           seed=0)
-        model.decode_head.dropout.rate = 0.0
-        with torch.no_grad():  # LayerScales 1: every branch in the gradients
-            for name, p in model.named_parameters():
-                if "layer_scale" in name:
-                    p.fill_(1.0)
+    model, _, sched, mask = entry.build_fss_training(cfg, None, "cpu",
+                                                     seed=0)
+    model.decode_head.dropout.rate = 0.0
+    with torch.no_grad():  # LayerScales 1: every branch in the gradients
+        for name, p in model.named_parameters():
+            if "layer_scale" in name:
+                p.fill_(1.0)
+
+    def step(m, device, dtype):
         loss, con = fss_train_step(
-            model, opt, sched, 0, *(t.to(device) for t in episode),
+            m, make_optimizer(cfg, m, mask), sched, 0,
+            *(t.to(device, dtype) if t.is_floating_point() else t.to(device)
+              for t in episode),
             torch.Generator(device=device).manual_seed(0),
-            bases=bases.to(device), contrastive_weight=0.1)
-        out[device] = (loss.item(), con.item(),
-                       {n: p.grad.cpu() for n, p in model.named_parameters()
-                        if mask[n]})
-        if device == "cuda":
-            launches = (fused_mlp.launches, fused_mlp.backward_launches)
+            bases=bases.to(device, dtype), contrastive_weight=0.1)
+        return (loss.item(), con.item()), {
+            n: p.grad.double().cpu() for n, p in m.named_parameters()
+            if mask[n]}
+
+    ref, card, control, launches, relus = against_float64(model, step)
     per_pass = sum(n for *_, n in mlp_shapes("DFormer-Base"))
     check(launches == (per_pass, per_pass),
           f"fss cpu vs card: {launches} forward and backward launches on "
           "the card")
-    (loss_card, con_card, g_card), (loss_cpu, con_cpu, g_cpu) = \
-        out["cuda"], out["cpu"]
-    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    worst, worst_name, skipped = 0.0, "", []
-    for name, want in g_cpu.items():
-        scale = want.abs().max().item()
-        if scale < TRAIN_NULL_GRAD:
-            skipped.append(name)
-            continue
-        rel = (g_card[name] - want).abs().max().item() / scale
-        if rel > worst:
-            worst, worst_name = rel, name
-    emit({"phase": "fss_cpu_vs_card", "model": "DFormerTrav-Base+LightHamHead",
-          "episodes": 1, "shots": 1, "hw": list(hw), "dtype": "float32",
-          "loss_card": loss_card, "loss_cpu": loss_cpu, "loss_rel": loss_rel,
-          "contrastive_card": con_card, "contrastive_cpu": con_cpu,
+    ((loss_ref, con_ref), g_ref), ((loss, con), g) = ref, card
+    loss_rel = abs(loss - loss_ref) / abs(loss_ref)
+    lidar = {n for n in g_ref if re.fullmatch(FSS_LIDAR_BIAS, n)}
+    check(lidar, "fss cpu vs card: no lidar-expansion bias")
+    rest = {n: w for n, w in g_ref.items() if n not in lidar}
+    worst, worst_name, skipped = grad_worst(g, rest)
+    worst_lidar, lidar_name, _ = grad_worst(g, {n: g_ref[n] for n in lidar})
+    control_worst, control_name, _ = grad_worst(control[1], rest)
+    emit({"phase": "fss_cpu_vs_card",
+          "model": "DFormerTrav-Base+LightHamHead", "episodes": 1,
+          "shots": 1, "hw": list(hw), "reference": "cpu float64",
+          "loss_card": loss, "loss_ref": loss_ref, "loss_rel": loss_rel,
+          "contrastive_card": con, "contrastive_ref": con_ref,
           "max_grad_rel": worst, "max_grad_rel_leaf": worst_name,
-          "limit_rel": FSS_CPU_VS_CARD_REL, "trainable_leaves": len(g_cpu),
+          "max_grad_rel_lidar_biases": worst_lidar,
+          "max_grad_rel_lidar_leaf": lidar_name,
+          "tf32_control_max_grad_rel": control_worst,
+          "tf32_control_leaf": control_name, "relus_pinned": relus,
+          "limit_rel": FSS_CPU_VS_CARD_REL,
+          "limit_grad_rel": FSS_CPU_VS_CARD_GRAD,
+          "limit_grad_rel_lidar_biases": FSS_LIDAR_BIAS_GRAD,
+          "lidar_biases": sorted(lidar),
+          "trainable_leaves": len(g_ref),
           "null_gradient_leaves_skipped": skipped,
           "fused_mlp_launches_each_way": per_pass, "card": smi})
-    check(loss_rel <= FSS_CPU_VS_CARD_REL, f"fss card vs CPU loss: {loss_rel}")
-    check(worst <= FSS_CPU_VS_CARD_REL,
-          f"fss card vs CPU gradient of {worst_name}: rel {worst}")
-    check(len(skipped) < len(g_cpu) // 10,
+    check(loss_rel <= FSS_CPU_VS_CARD_REL, f"fss card loss: {loss_rel}")
+    check(worst <= FSS_CPU_VS_CARD_GRAD,
+          f"fss card gradient of {worst_name}: rel {worst}")
+    check(worst_lidar <= FSS_LIDAR_BIAS_GRAD,
+          f"fss card gradient of {lidar_name}: rel {worst_lidar}")
+    check(control_worst > FSS_CPU_VS_CARD_GRAD,
+          f"fss: the TF32 control passed ({control_worst})")
+    check(len(skipped) < len(g_ref) // 10,
           f"{len(skipped)} null-gradient leaves skipped")
+
+# the decoder phases: every head of the JAX package on DFormer-Large at
+# 480x640, bs8, bf16 (ham with the FCN aux head at aux_rate 0.4; UPernet,
+# deeplabv3+ and nl always carry it); forwards timed, steps counted and
+# timed, images evaluated; each head's narrow step at the main path's batch
+# (UPernet's pyramid and deeplabv3+'s image pool then normalise 8 pooled
+# values), fp32 on the card against float64 on the CPU through
+# `against_float64` (an H100 read 6.5e-6 to 2.3e-5 of a leaf's max there
+# over three runs, TF32 5e-3 to 7.5e-3); the train tool on the UPernet
+# config
+DECODERS = (("MLPDecoder", 0.0), ("UPernet", 0.0), ("deeplabv3+", 0.0),
+            ("nl", 0.0), ("ham", 0.4))
+DECODER_FORWARDS = 10
+DECODER_WARM_STEPS, DECODER_TIMED_STEPS = 3, 5
+DECODER_EVAL_IMAGES = 4
+DECODER_CPU_VS_CARD_BATCH = 8
+DECODER_CPU_VS_CARD_LOSS = 1e-6
+DECODER_CPU_VS_CARD_GRAD = 5e-5
+DECODERS_FIT_ITERS = 3
+
+
+def phase_decoders(smi):
+    """Each head of DECODERS on DFormer-Large (weights from seed 0): a
+    warm-up request, then DECODER_FORWARDS timed forwards through
+    entry.infer (finite logits of the right shape, 39 forward-kernel
+    launches each); entry.build_trainer + entry.train_steps for
+    DECODER_WARM_STEPS steps, then DECODER_TIMED_STEPS timed ones (finite
+    losses, 39 + 39 launches each); single-scale evaluation of
+    DECODER_EVAL_IMAGES synthetic images through entry.build_evaluator,
+    whose labels must equal entry.infer's on the same batch. Returns
+    {head: (forward launches per forward, forward and backward launches
+    per step)}."""
+    import torch
+
+    from dformer_torch import entry
+    from dformer_torch.configs import load_config
+    from dformer_torch.data.loader import device_val_batches
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+
+    per_pass = sum(n for *_, n in mlp_shapes())
+    rng = np.random.RandomState(30)
+    rgb, depth, _ = train_batch(rng, BATCH, HW, NUM_CLASSES)
+    batches = [train_batch(rng, BATCH, HW, NUM_CLASSES) for _ in range(2)]
+    out = {}
+    for decoder, aux_rate in DECODERS:
+        name = decoder + (f"+aux{aux_rate}" if aux_rate else "")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = entry.build("DFormer-Large", HW, NUM_CLASSES, torch.bfloat16,
+                            "cuda", seed=0, decoder=decoder,
+                            aux_rate=aux_rate)
+        logits = []
+        hook = model.register_forward_hook(lambda m, i, o: logits.append(o))
+        entry.infer(model, rgb, depth)
+        torch.cuda.synchronize()
+        fused_mlp.launches = 0
+        times = []
+        for _ in range(DECODER_FORWARDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            labels = entry.infer(model, rgb, depth)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        fwd_launches = fused_mlp.launches
+        hook.remove()
+        out_logits = logits[-1]
+        check(tuple(out_logits.shape) == (BATCH, *HW, NUM_CLASSES)
+              and bool(torch.isfinite(out_logits).all()),
+              f"{name}: logits {tuple(out_logits.shape)} or not finite")
+        check(tuple(labels.shape) == (BATCH, *HW)
+              and 0 <= labels.min().item()
+              and labels.max().item() < NUM_CLASSES,
+              f"{name}: bad labels")
+        check(fwd_launches == per_pass * DECODER_FORWARDS,
+              f"{name}: {fwd_launches} forward launches in "
+              f"{DECODER_FORWARDS} forwards, expected {per_pass} each")
+        serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del model, logits, out_logits
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        model, optimizer, schedule, gen = entry.build_trainer(
+            "DFormer-Large", HW, NUM_CLASSES, torch.bfloat16, "cuda", seed=0,
+            decoder=decoder, aux_rate=aux_rate)
+        check((model.aux_head is not None)
+              == (aux_rate != 0 or decoder != "MLPDecoder"),
+              f"{name}: aux head {model.aux_head is not None}")
+        fused_mlp.launches = fused_mlp.backward_launches = 0
+        losses = entry.train_steps(model, optimizer, schedule, gen,
+                                   [batches[k % 2] for k in
+                                    range(DECODER_WARM_STEPS)])
+        steps = DECODER_WARM_STEPS
+        step_launches = (fused_mlp.launches, fused_mlp.backward_launches)
+        check(step_launches == (per_pass * steps, per_pass * steps),
+              f"{name}: {step_launches} forward and backward launches in "
+              f"{steps} steps, expected {per_pass} + {per_pass} each")
+        step_times = []
+        for k in range(DECODER_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += entry.train_steps(model, optimizer, schedule, gen,
+                                        [batches[k % 2]],
+                                        first_step=steps + k)
+            torch.cuda.synchronize()
+            step_times.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.isfinite(v) for v in losses), f"{name}: losses {losses}")
+        train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del model, optimizer
+        torch.cuda.empty_cache()
+
+        cfg = load_config("local_configs.NYUDepthv2.DFormer_Large")
+        cfg.update(decoder=decoder, aux_rate=aux_rate)
+        ev, _ = entry.build_evaluator(cfg, torch.bfloat16, "cuda", seed=0)
+        differ = []
+
+        def same_labels(pred, batch):
+            served = entry.infer(ev.model, batch["rgb"], batch["modal_x"])
+            differ.append(int((served[:pred.shape[0]].cpu().numpy()
+                               != pred).sum()))
+
+        fused_mlp.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = ev.evaluate(device_val_batches(cfg, DECODER_EVAL_IMAGES, "cuda",
+                                           synthetic=True,
+                                           n=DECODER_EVAL_IMAGES),
+                        save_hook=same_labels)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        check(m.hist.sum() == DECODER_EVAL_IMAGES * HW[0] * HW[1]
+              and np.isfinite(m.compute_iou()[1]),
+              f"{name}: eval hist {m.hist.sum()}")
+        check(differ == [0], f"{name}: eval labels differ from the served "
+              f"forward's at {differ} pixels")
+        check(fused_mlp.launches == 2 * per_pass,
+              f"{name}: {fused_mlp.launches} launches in the eval group and "
+              "its served forward")
+        del ev
+        torch.cuda.empty_cache()
+        ms, step_ms = statistics.median(times), statistics.median(step_times)
+        emit({"phase": "decoders", "model": f"DFormer-Large+{name}",
+              "decoder": decoder, "aux_rate": aux_rate, "batch": BATCH,
+              "hw": list(HW), "dtype": "bfloat16",
+              "ms_per_forward": ms, "ms_each_forward": times,
+              "img_per_s": BATCH / ms * 1e3,
+              "fused_mlp_launches_per_forward": fwd_launches
+              / DECODER_FORWARDS,
+              "ms_per_step": step_ms, "ms_each_step": step_times,
+              "losses": losses,
+              "fused_mlp_launches_per_step": [n / steps
+                                              for n in step_launches],
+              "peak_mem_gib_serve": serve_peak,
+              "peak_mem_gib_train": train_peak,
+              "eval_images": DECODER_EVAL_IMAGES, "eval_s": eval_s,
+              "eval_mIoU": m.compute_iou()[1],
+              "eval_labels_equal_served": True, "card": smi})
+        out[name] = (fwd_launches / DECODER_FORWARDS,
+                     [n / steps for n in step_launches])
+    return out
+
+
+def phase_decoders_cpu_vs_card(smi):
+    """For each head of DECODERS, one narrow forward + backward at batch
+    DECODER_CPU_VS_CARD_BATCH (the train step's loss, the aux term
+    included; same weights, batch and NMF bases; DropPath and dropout off)
+    through `against_float64`: the card's fp32 loss within
+    DECODER_CPU_VS_CARD_LOSS relative of the float64 CPU's, every gradient
+    within DECODER_CPU_VS_CARD_GRAD of its leaf's max (leaves whose
+    reference gradient stays below TRAIN_NULL_GRAD are rounding noise, not
+    compared), and the TF32 control outside that limit."""
+    import torch
+
+    from dformer_torch import entry
+    from dformer_torch.models.encoder import VARIANTS
+    from dformer_torch.models.nn import Dropout
+    from dformer_torch.ops.loss import softmax_cross_entropy_masked_mean
+
+    VARIANTS.setdefault("DFormer-Narrow", NARROW)
+    hw, batch, classes = (64, 96), DECODER_CPU_VS_CARD_BATCH, 11
+    n_mlp = sum(NARROW["depths"]) * 2 - 1
+    rng = np.random.RandomState(31)
+    rgb, depth, gt = (t.cpu() for t in train_batch(rng, batch, hw, classes))
+    bases = torch.from_numpy(rng.rand(batch, 512, 64).astype(np.float32))
+    bases = bases / torch.linalg.norm(bases, dim=1, keepdim=True)
+
+    def step(model, device, dtype):
+        logits, aux = model.forward_with_aux(
+            rgb.to(device, dtype), depth.to(device, dtype),
+            bases=bases.to(device, dtype))
+        loss = softmax_cross_entropy_masked_mean(logits, gt.to(device))
+        if model.aux_rate:
+            loss = loss + model.aux_rate * softmax_cross_entropy_masked_mean(
+                aux, gt.to(device))
+        loss.backward()
+        return loss.item(), {n: p.grad.double().cpu()
+                             for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    misses = []
+    for decoder, aux_rate in DECODERS:
+        model = entry.build_trainer(
+            "DFormer-Narrow", hw, classes, torch.float32, "cpu", seed=0,
+            decoder=decoder, aux_rate=aux_rate, drop_path_rate=0.0)[0]
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+        (loss_ref, g_ref), (loss, g), control, launches, relus = \
+            against_float64(model, step)
+        loss_rel = abs(loss - loss_ref) / abs(loss_ref)
+        worst, worst_name, skipped = grad_worst(g, g_ref)
+        control_worst, control_name, _ = grad_worst(control[1], g_ref)
+        emit({"phase": "decoders_cpu_vs_card", "decoder": decoder,
+              "aux_rate": aux_rate, "model": "DFormer-Narrow",
+              "batch": batch, "hw": list(hw), "reference": "cpu float64",
+              "loss_card": loss, "loss_ref": loss_ref, "loss_rel": loss_rel,
+              "limit_loss_rel": DECODER_CPU_VS_CARD_LOSS,
+              "max_grad_rel": worst, "max_grad_rel_leaf": worst_name,
+              "limit_grad_rel": DECODER_CPU_VS_CARD_GRAD,
+              "tf32_control_max_grad_rel": control_worst,
+              "tf32_control_leaf": control_name, "relus_pinned": relus,
+              "leaves": len(g_ref), "null_gradient_leaves_skipped": skipped,
+              "fused_mlp_launches_card": launches, "card": smi})
+        check(launches == (n_mlp, n_mlp),
+              f"{decoder} cpu vs card: {launches} launches on the card")
+        check(len(skipped) < len(g_ref) // 5,
+              f"{decoder}: {len(skipped)} null-gradient leaves skipped")
+        if loss_rel > DECODER_CPU_VS_CARD_LOSS \
+                or worst > DECODER_CPU_VS_CARD_GRAD:
+            misses.append(f"{decoder}: loss {loss_rel}, gradient of "
+                          f"{worst_name} {worst}")
+        if control_worst <= DECODER_CPU_VS_CARD_GRAD:
+            misses.append(f"{decoder}: the TF32 control passed "
+                          f"({control_worst})")
+    check(not misses, "decoders against the float64 CPU: "
+          + "; ".join(misses))
+
+
+def phase_decoders_fit(smi):
+    """`tools.train.run` on the NYUDepthv2 DFormer-Large config with
+    decoder UPernet and aux_rate 0.4 (bf16, bs8, 480x640, synthetic data):
+    2 epochs of DECODERS_FIT_ITERS iterations, an fp32 MSF + flip
+    evaluation of FIT_VAL_IMAGES images after epoch 1, and a rescue
+    checkpoint after epoch 2 (a preemption requested there, as in `fit`);
+    that file, loaded into a fresh `entry.build` model of the same head,
+    gives the trained model's logits. Returns the run's (forward, backward)
+    launches."""
+    import tempfile
+
+    import torch
+
+    from dformer_torch import entry
+    from dformer_torch.configs import load_config
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+    from dformer_torch.runtime.preempt import StopAfter
+    from dformer_torch.tools import train as train_tool
+    from dformer_torch.utils.checkpoint import load_checkpoint
+
+    per_pass = sum(n for *_, n in mlp_shapes())
+    steps = 2 * DECODERS_FIT_ITERS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as root:
+        cfg = load_config("local_configs.NYUDepthv2.DFormer_Large")
+        cfg.update(decoder="UPernet", aux_rate=0.4,
+                   niters_per_epoch=DECODERS_FIT_ITERS, nepochs=2,
+                   checkpoint_start_epoch=0, num_eval_imgs=FIT_VAL_IMAGES,
+                   log_dir_base=f"{root}/upernet")
+        fused_mlp.launches = fused_mlp.backward_launches = 0
+        t0 = time.perf_counter()
+        run = train_tool.run(cfg, train_tool.parse_args(
+            ["--config=local_configs.NYUDepthv2.DFormer_Large",
+             "--synthetic-data", f"--val_batch_size={FIT_VAL_IMAGES}"]),
+            guard=StopAfter(2 * (DECODERS_FIT_ITERS + 1)))
+        run_s = time.perf_counter() - t0
+        launches = (fused_mlp.launches, fused_mlp.backward_launches)
+        trainer = run.pop("trainer")
+        evals = sorted(run["eval_seconds"])
+        # one MSF + flip group: 5 scales x 2 flips
+        want = (steps * per_pass + 10 * per_pass, steps * per_pass)
+        check(trainer.step == steps, f"UPernet fit ended at step "
+              f"{trainer.step}, not {steps}")
+        check(trainer.model.aux_head is not None, "UPernet fit: no aux head")
+        check(launches == want, f"UPernet fit: {launches} forward and "
+              f"backward launches, expected {want}")
+        check(all(np.isfinite(v) for v in run["losses"].values())
+              and evals == [1], f"UPernet fit losses {run['losses']}, "
+              f"evaluated after epochs {evals}")
+        kept = sorted(p for *_, p in run["checkpoints"]._existing())
+        rescue, epoch = run["checkpoints"].latest()
+        check(epoch == 2, f"UPernet fit kept {kept}")
+        rgb, depth, _ = train_batch(np.random.RandomState(32), 2, HW,
+                                    NUM_CLASSES)
+        fresh = load_checkpoint(entry.build(
+            "DFormer-Large", HW, NUM_CLASSES, torch.bfloat16, "cuda",
+            decoder="UPernet", aux_rate=0.4), rescue)
+        with torch.inference_mode():
+            logits_file = fresh(rgb, depth)
+            logits_trained = trainer.model.eval()(rgb, depth)
+        check(torch.equal(logits_file, logits_trained),
+              "UPernet checkpoint logits differ by "
+              f"{(logits_file.float() - logits_trained.float()).abs().max()}")
+        gaps = step_gaps_ms(trainer)
+        del trainer, fresh
+    emit({"phase": "decoders_fit", "model": "DFormer-Large+UPernet+aux0.4",
+          "config": "local_configs.NYUDepthv2.DFormer_Large",
+          "decoder": "UPernet", "aux_rate": 0.4, "batch": BATCH,
+          "hw": list(HW), "dtype": "bfloat16", "eval_dtype": "float32",
+          "iterations_per_epoch": DECODERS_FIT_ITERS,
+          "val_images": FIT_VAL_IMAGES, "losses": run["losses"],
+          "evaluated_epochs": evals, "kept": kept,
+          "fused_mlp_launches": launches,
+          "ms_per_step": statistics.median(gaps), "ms_each_step": gaps,
+          "epoch_seconds": run["epoch_seconds"],
+          "eval_seconds": run["eval_seconds"], "run_s": run_s,
+          "checkpoint_logits_equal": True,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "card": smi})
+    return launches
+
 
 
 def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
-                   fit_launches, trav_rows, trav_launches, fss_launches):
+                   fit_launches, trav_rows, trav_launches, fss_launches,
+                   decoder_launches, decoders_fit_launches):
     """One entry per kernel: times per forward or per train step (each
     shape's time times its launches, summed over the main-path shapes).
     `launches` are those of the serving path's run for the forward kernel
@@ -1586,7 +2027,9 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
     backward call is four CUDA launches (K1-K4), whose times per step are
     listed, with torch.matmul of K3's two products beside K3; beside the
     forward, torch.matmul of its two products. The `trav_*` keys are the
-    same sums over the 8 shapes of an FSS step's encoder pass (B 12)."""
+    same sums over the 8 shapes of an FSS step's encoder pass (B 12). The
+    `*_decoders*` keys are the launches of the decoder phases: per forward
+    and per step for each head, and in the UPernet train tool's run."""
     from dformer_torch.kernels.fused_mlp import (REPLACES, REPLACES_BWD,
                                                  SOURCE, SOURCE_BWD)
 
@@ -1630,6 +2073,11 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                                        for k, v in trav_launches.items()},
                   "launches_in_fss": {k: v[0]
                                       for k, v in fss_launches.items()},
+                  "launches_per_forward_in_decoders": {
+                      k: v[0] for k, v in decoder_launches.items()},
+                  "launches_per_step_in_decoders": {
+                      k: v[1][0] for k, v in decoder_launches.items()},
+                  "launches_in_decoders_fit": decoders_fit_launches[0],
                   "products_library_ms": total(rows, "launches_per_forward",
                                                "products_library_ms"),
                   **trav(trav_rows[0], "launches_per_forward",
@@ -1641,6 +2089,9 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                                        for k, v in trav_launches.items()},
                   "launches_in_fss": {k: v[1]
                                       for k, v in fss_launches.items()},
+                  "launches_per_step_in_decoders": {
+                      k: v[1][1] for k, v in decoder_launches.items()},
+                  "launches_in_decoders_fit": decoders_fit_launches[1],
                   "stage_ms": stages,
                   "wgrad_library_ms": total(rows_bwd, per,
                                             "wgrad_library_ms"),
@@ -1670,8 +2121,12 @@ def main():
     trav_launches = phase_trav(smi)
     fss_launches = phase_fss(smi)
     phase_fss_cpu_vs_card(smi)
+    decoder_launches = phase_decoders(smi)
+    phase_decoders_cpu_vs_card(smi)
+    decoders_fit_launches = phase_decoders_fit(smi)
     emit(kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
-                        fit_launches, trav_rows, trav_launches, fss_launches))
+                        fit_launches, trav_rows, trav_launches, fss_launches,
+                        decoder_launches, decoders_fit_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -52,18 +52,14 @@ def _use_device(who: str, device):
         torch.backends.cudnn.allow_tf32 = False
 
 
-def _require_ham(cfg):
-    if cfg.decoder != "ham" or cfg.aux_rate != 0:
-        raise NotImplementedError(
-            f"decoder {cfg.decoder!r} with aux_rate {cfg.aux_rate} is not "
-            f"ported yet (ROADMAP.md Queue 1, item 10: remaining decoders)")
-
-
 def build(backbone: str = "DFormer-Large", hw: Tuple[int, int] = (480, 640),
           num_classes: int = 40, dtype: Optional[torch.dtype] = torch.bfloat16,
           device="cuda", seed: int = 0, drop_path_rate: float = 0.1,
-          bn_eps: float = 1e-3, bn_momentum: float = 0.1) -> EncoderDecoder:
-    """DFormer + LightHamHead (decoder 'ham') in eval mode, with weights
+          bn_eps: float = 1e-3, bn_momentum: float = 0.1,
+          decoder: str = "ham", aux_rate: float = 0.0) -> EncoderDecoder:
+    """DFormer + the `decoder` head (`models.builder.EncoderDecoder`: ham,
+    MLPDecoder, UPernet, deeplabv3+, nl, else the FCN fallback; the FCN aux
+    head as `aux_rate` and the decoder ask) in eval mode, with weights
     drawn from `seed`.
 
     Parameters are fp32 on `device`; activations run in `dtype`. The
@@ -78,9 +74,10 @@ def build(backbone: str = "DFormer-Large", hw: Tuple[int, int] = (480, 640),
     runs) stay fp32. `hw` is the input size the model serves; the model
     itself takes any size."""
     _use_device("entry.build", device)
-    cfg = AttrDict(backbone=backbone, decoder="ham", num_classes=num_classes,
-                   decoder_embed_dim=512, drop_path_rate=drop_path_rate,
-                   aux_rate=0.0, bn_eps=bn_eps, bn_momentum=bn_momentum,
+    cfg = AttrDict(backbone=backbone, decoder=decoder,
+                   num_classes=num_classes, decoder_embed_dim=512,
+                   drop_path_rate=drop_path_rate, aux_rate=aux_rate,
+                   bn_eps=bn_eps, bn_momentum=bn_momentum,
                    image_height=hw[0], image_width=hw[1])
     return _serving_model(cfg, dtype, device, seed)
 
@@ -116,11 +113,13 @@ def infer(model: EncoderDecoder, rgb: torch.Tensor, modal_x: torch.Tensor
 def build_trainer(backbone: str = "DFormer-Large",
                   hw: Tuple[int, int] = (480, 640), num_classes: int = 40,
                   dtype: Optional[torch.dtype] = torch.bfloat16,
-                  device="cuda", seed: int = 0, **overrides
+                  device="cuda", seed: int = 0, decoder: str = "ham",
+                  **overrides
                   ) -> Tuple[EncoderDecoder, torch.optim.Optimizer,
                              Callable[[int], float], torch.Generator]:
     """(model in train mode, AdamW, schedule step -> lr, generator) for the
-    `TRAIN_RECIPE`, any field of which `overrides` replace.
+    `TRAIN_RECIPE`, any field of which `overrides` replace (`aux_rate`
+    among them), with the `decoder` head.
 
     The weights are `build`'s draw from `seed` (LayerScales at 1: the 1e-6
     of a fresh init would scale every MLP gradient by 1e-6). The generator,
@@ -129,7 +128,8 @@ def build_trainer(backbone: str = "DFormer-Large",
     cfg = AttrDict(TRAIN_RECIPE, **overrides)
     model = build(backbone, hw, num_classes, dtype, device, seed,
                   drop_path_rate=cfg.drop_path_rate, bn_eps=cfg.bn_eps,
-                  bn_momentum=cfg.bn_momentum).train()
+                  bn_momentum=cfg.bn_momentum, decoder=decoder,
+                  aux_rate=cfg.aux_rate).train()
     generator = torch.Generator(device=device).manual_seed(seed)
     return model, make_optimizer(cfg, model), make_schedule(cfg), generator
 
@@ -141,10 +141,11 @@ def train_steps(model: EncoderDecoder, optimizer: torch.optim.Optimizer,
                 first_step: int = 0, ignore_index: int = 255) -> List[float]:
     """Take one optimizer step per batch (rgb [B,H,W,3] fp32, modal_x
     [B,H,W,C] fp32, labels [B,H,W] integer, on the model's device), steps
-    `first_step`, `first_step` + 1, ...; returns the losses. Leaves the
-    model in train mode."""
+    `first_step`, `first_step` + 1, ...; returns the losses (the aux term
+    at the model's `aux_rate` included). Leaves the model in train mode."""
     losses = [train_step(model, optimizer, schedule, first_step + i, rgb, gt,
-                         modal_x, generator, ignore_index=ignore_index)
+                         modal_x, generator, ignore_index=ignore_index,
+                         aux_rate=model.aux_rate)
               for i, (rgb, modal_x, gt) in enumerate(batches)]
     return [float(loss) for loss in losses]
 
@@ -157,17 +158,18 @@ def build_evaluator(cfg: AttrDict, dtype: Optional[torch.dtype] = None,
     """(Evaluator, val batches on `device`) for a loaded config
     (`dformer_torch.configs.load_config`).
 
-    The model is `build`'s for the config's backbone, classes, image size
-    and BatchNorm eps, computing in `dtype` (None = fp32), with the weights
+    The model is `build`'s for the config's backbone, decoder, aux_rate,
+    classes, image size and BatchNorm eps, computing in `dtype` (None =
+    fp32), with the weights
     of a torch `checkpoint` file when one is given and `build`'s draw from
     `seed` otherwise. The batches are `data.loader.device_val_batches`: the
     config's val split (or `n` synthetic images) in batches of
     `val_batch_size`, normalised on the device."""
-    _require_ham(cfg)
     model = build(cfg.backbone, (cfg.image_height, cfg.image_width),
                   cfg.num_classes, dtype, device, seed,
                   drop_path_rate=cfg.drop_path_rate, bn_eps=cfg.bn_eps,
-                  bn_momentum=cfg.bn_momentum)
+                  bn_momentum=cfg.bn_momentum, decoder=cfg.decoder,
+                  aux_rate=cfg.aux_rate)
     if checkpoint is not None:
         load_checkpoint(model, checkpoint)
     batches = device_val_batches(cfg, val_batch_size, device,
@@ -184,15 +186,15 @@ def build_training(cfg: AttrDict, dtype: Optional[torch.dtype] = torch.bfloat16,
     or None) for a loaded config (`dformer_torch.configs.load_config`), as
     `tools/train.py` assembles them.
 
-    The model is the config's backbone + LightHamHead with fp32 parameters
-    on `device` computing in `dtype` (None = fp32), drawn by the layers' own
-    training init under `torch.manual_seed(seed)` (LayerScales 1e-6). When
+    The model is the config's backbone + decoder (and aux head) with fp32
+    parameters on `device` computing in `dtype` (None = fp32), drawn by the
+    layers' own training init under `torch.manual_seed(seed)` (LayerScales
+    1e-6). When
     `cfg.pretrained_model` names a file that exists, the encoder is loaded
     from it and every loaded parameter is frozen (left out of the
     optimizer); otherwise the whole model trains from scratch. The
     optimizer is `cfg.optimizer` (AdamW or SGDM), the schedule the warm-up
     poly rate of `cfg`."""
-    _require_ham(cfg)
     _use_device("entry.build_training", device)
     model = _init_model(cfg, dtype, seed)
     matched = []
@@ -223,12 +225,11 @@ def _init_model(cfg: AttrDict, dtype: Optional[torch.dtype] = torch.bfloat16,
 
 def build_trav(cfg: AttrDict, dtype: Optional[torch.dtype] = torch.bfloat16,
                device="cuda", seed: int = 0) -> EncoderDecoder:
-    """DFormerTrav-Base + LightHamHead of a Trav config
+    """DFormerTrav-Base + the config's decoder of a Trav config
     (`local_configs.Trav.DFormer_Base`) in eval mode, with `build`'s
     weights from `seed` (LayerScales 1, BatchNorm statistics drawn). The
     lidar expansion follows the config's image size. Serve it with
     `infer(model, rgb [B,H,W,3], lidar [B,360])`."""
-    _require_ham(cfg)
     _use_device("entry.build_trav", device)
     if cfg.backbone != "DFormerTrav-Base":
         raise ValueError(f"build_trav: backbone {cfg.backbone!r} is not "
@@ -250,7 +251,6 @@ def build_fss_training(cfg: AttrDict,
     loaded from it, but nothing is frozen by the loaded names:
     `fss_trainable_mask` decides (the expansion, stage 0 and the decoder
     train). The optimizer holds the trainable parameters only."""
-    _require_ham(cfg)
     _use_device("entry.build_fss_training", device)
     model = _init_model(cfg, dtype, seed)
     pretrained = cfg.get("pretrained_model")

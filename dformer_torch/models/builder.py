@@ -1,11 +1,12 @@
-"""Model assembly: backbone + decode head, plus the few-shot prototype
-forward (counterpart of `dformer_tpu/models/builder.py`, ham path).
+"""Model assembly: backbone + decode head (+ the FCN aux head), plus the
+few-shot prototype forward (counterpart of `dformer_tpu/models/builder.py`).
 
 `EncoderDecoder.forward` returns full-resolution NHWC logits, bilinearly
-upsampled with align_corners=False. In train mode (`model.train()`) the
-BatchNorms use batch statistics, DropPath and dropout draw from the
-`generator` argument, and the NMF draws fresh bases from it.
-`meta_forward` is the 1-way few-shot episode forward of the Trav recipe.
+upsampled with align_corners=False; `forward_with_aux` also the aux head's
+logits. In train mode (`model.train()`) the BatchNorms use batch
+statistics, DropPath and dropout draw from the `generator` argument, and
+the ham head's NMF draws fresh bases from it. `meta_forward` is the 1-way
+few-shot episode forward of the Trav recipe.
 """
 
 import contextlib
@@ -14,34 +15,41 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from dformer_torch.models.decoders.deeplabv3p import DeepLabV3Plus
+from dformer_torch.models.decoders.fcn import FCNHead
 from dformer_torch.models.decoders.ham import LightHamHead
+from dformer_torch.models.decoders.mlp import MLPDecoderHead
+from dformer_torch.models.decoders.nl import NLHead
+from dformer_torch.models.decoders.upernet import UPerHead
 from dformer_torch.models.encoder import VARIANTS, DFormer
 from dformer_torch.models.trav import DFormerTrav
 from dformer_torch.ops.resize import resize_bilinear
 
 TRAV_BACKBONE = "DFormerTrav-Base"
+# the decoders that attach the FCN aux head whatever aux_rate is
+ALWAYS_AUX = ("UPernet", "deeplabv3+", "nl")
 
 
 class EncoderDecoder(nn.Module):
+    """decoder: "ham" (LightHamHead), "MLPDecoder", "UPernet", "deeplabv3+",
+    "nl", and for any other name the FCN-32s fallback (an `FCNHead` on the
+    top stage). The FCN aux head reads stage 3 (index 2) when the decoder
+    is ham and aux_rate is not 0, and always for UPernet, deeplabv3+ and
+    nl. nmf_one_step_grad: the ham head's NMF gradient (`nmf2d`)."""
+
     def __init__(self, backbone: str = "DFormer-Large", decoder: str = "ham",
                  num_classes: int = 40, decoder_embed_dim: int = 512,
                  drop_path_rate: float = 0.1, aux_rate: float = 0.0,
                  bn_eps: float = 1e-3, bn_momentum: float = 0.1,
                  temperature: float = 1.0, alpha: float = 0.5,
                  image_hw: Tuple[int, int] = (480, 640),
+                 nmf_one_step_grad: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         if backbone not in VARIANTS and backbone != TRAV_BACKBONE:
             raise ValueError(f"unknown backbone {backbone!r}; known: "
                              f"{', '.join(sorted(VARIANTS))}, {TRAV_BACKBONE}")
-        if decoder != "ham":
-            raise NotImplementedError(
-                f"decoder {decoder!r} is not ported yet (ROADMAP.md "
-                f"Queue 1, item 10: remaining decoders)")
-        if aux_rate != 0:
-            raise NotImplementedError(
-                "the FCN aux head is not ported yet (ROADMAP.md Queue 1, "
-                "item 10: remaining decoders)")
+        self.decoder, self.aux_rate = decoder, aux_rate
         self.dtype = dtype
         # the few-shot fusion: softmax temperature of the prototype
         # similarities, weight of the decoder logits against them
@@ -55,16 +63,41 @@ class EncoderDecoder(nn.Module):
             spec = VARIANTS[backbone]
             self.encoder_backbone = DFormer(drop_path_rate=drop_path_rate,
                                             dtype=dtype, **spec)
-        self.decode_head = LightHamHead(
-            in_channels=spec["dims"][1:], in_index=(1, 2, 3),
-            channels=decoder_embed_dim, num_classes=num_classes,
-            bn_eps=bn_eps, bn_momentum=bn_momentum, dtype=dtype)
+        dims = spec["dims"]
+        head = dict(num_classes=num_classes, bn_eps=bn_eps,
+                    bn_momentum=bn_momentum, dtype=dtype)
+        if decoder == "ham":
+            self.decode_head = LightHamHead(
+                in_channels=dims[1:], in_index=(1, 2, 3),
+                channels=decoder_embed_dim,
+                one_step_grad=nmf_one_step_grad, **head)
+        elif decoder == "MLPDecoder":
+            self.decode_head = MLPDecoderHead(
+                dims, embed_dim=decoder_embed_dim, **head)
+        elif decoder == "UPernet":
+            self.decode_head = UPerHead(dims, channels=512, **head)
+        elif decoder == "deeplabv3+":
+            self.decode_head = DeepLabV3Plus(dims, **head)
+        elif decoder == "nl":
+            self.decode_head = NLHead(dims, channels=512, **head)
+        else:
+            self.decode_head = FCNHead(dims[-1], kernel_size=3, **head)
+        if (decoder == "ham" and aux_rate != 0) or decoder in ALWAYS_AUX:
+            self.aux_index = 2
+            self.aux_head = FCNHead(dims[self.aux_index], **head)
+        else:
+            self.aux_head = None
 
     def encode(self, rgb, modal_x, generator=None):
         return self.encoder_backbone(rgb, modal_x, generator)
 
     def decode(self, features, out_hw, bases=None, generator=None):
-        out = self.decode_head(features, bases, generator)
+        """The decode head's logits resized to `out_hw`. `bases` pins the
+        ham head's NMF bases; the other heads take none."""
+        if self.decoder == "ham":
+            out = self.decode_head(features, bases, generator)
+        else:
+            out = self.decode_head(features, generator)
         return resize_bilinear(out, out_hw, align_corners=False)
 
     def forward(self, rgb, modal_x, bases: Optional[torch.Tensor] = None,
@@ -78,9 +111,14 @@ class EncoderDecoder(nn.Module):
     def forward_with_aux(self, rgb, modal_x,
                          bases: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None):
-        """(logits, aux logits). The ham decoder with aux_rate 0 attaches no
-        aux head (the constructor refuses the others), so aux is None."""
-        return self.forward(rgb, modal_x, bases, generator), None
+        """(logits, aux logits resized to the input, or None without an
+        aux head)."""
+        features = self.encode(rgb, modal_x, generator)
+        out = self.decode(features, rgb.shape[1:3], bases, generator)
+        if self.aux_head is None:
+            return out, None
+        aux = self.aux_head(features[self.aux_index])
+        return out, resize_bilinear(aux, rgb.shape[1:3], align_corners=False)
 
     # ---- few-shot segmentation ----
 
@@ -159,7 +197,7 @@ def build_model(cfg, device="cuda", dtype: Optional[torch.dtype] = None
         bn_momentum=cfg.get("bn_momentum", 0.1),
         temperature=cfg.get("temperature", 1.0), alpha=cfg.get("alpha", 0.5),
         image_hw=(cfg.get("image_height", 480), cfg.get("image_width", 640)),
-        dtype=dtype)
+        nmf_one_step_grad=cfg.get("nmf_one_step_grad", True), dtype=dtype)
     return model.to(device)
 
 

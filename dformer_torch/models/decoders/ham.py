@@ -4,8 +4,9 @@
 concat stages 2-4 resized to 1/8 -> 1x1 squeeze ConvModule -> Hamburger
 (1x1 in -> NMF2D multiplicative updates -> 1x1+BN out, residual relu) ->
 1x1 align ConvModule -> dropout + 1x1 classifier. In training the NMF takes
-6 steps from freshly drawn bases with the one-step gradient; in eval 7 steps
-from seeded bases. All NMF math runs in fp32
+6 steps from freshly drawn bases, with the one-step gradient or (opt-in,
+`one_step_grad=False`) through all its updates; in eval 7 steps from seeded
+bases. All NMF math runs in fp32
 (its updates are ratios and precision-sensitive); on the card it needs
 `torch.backends.cuda.matmul.allow_tf32 = False`, which `entry.build` sets.
 """
@@ -17,20 +18,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dformer_torch.models.nn import Conv2d, ConvBNReLU, Dropout
+from dformer_torch.models.nn import ConvBNReLU, Dropout, RoundedConv2d
 from dformer_torch.ops.resize import resize_bilinear
 
 
-def nmf2d(x, bases, train: bool = False):
+def nmf2d(x, bases, train: bool = False, one_step_grad: bool = True):
     """Non-negative matrix factorisation refinement (6 steps in training, 7
     in eval).
 
     x: [B, N, D] non-negative features; bases: [B, D, R] initial bases.
     Returns the rank-R reconstruction [B, N, D], in fp32.
 
-    Training gradient: the iterated updates run on `x.detach()`, and only
-    the last coefficient update and the reconstruction are differentiated
-    (HamNet's one-step gradient)."""
+    Training gradient: with `one_step_grad` the iterated updates run on
+    `x.detach()`, and only the last coefficient update and the
+    reconstruction are differentiated (HamNet's one-step gradient);
+    without it every update is differentiated, which from a random init can
+    give non-finite gradients (the ratios' small denominators square in the
+    backward)."""
     x = x.float()
     bases = bases.float()
     eps = 1e-6
@@ -40,7 +44,7 @@ def nmf2d(x, bases, train: bool = False):
         denom = torch.bmm(coef, torch.bmm(bases_.transpose(1, 2), bases_))
         return coef * numer / (denom + eps)
 
-    x_iter = x.detach() if train else x
+    x_iter = x.detach() if train and one_step_grad else x
     coef = torch.softmax(torch.bmm(x_iter, bases), dim=-1)
     for _ in range(6 if train else 7):
         coef = update_coef(x_iter, bases, coef)
@@ -87,10 +91,12 @@ class Hamburger(nn.Module):
 
     def __init__(self, ham_channels: int = 512, md_r: int = 64,
                  bn_eps: float = 1e-3, bn_momentum: float = 0.1,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 one_step_grad: bool = True):
         super().__init__()
         self.ham_channels, self.md_r = ham_channels, md_r
-        self.ham_in = Conv2d(ham_channels, ham_channels, 1, dtype=dtype)
+        self.one_step_grad = one_step_grad
+        self.ham_in = RoundedConv2d(ham_channels, ham_channels, 1, dtype=dtype)
         self.ham_out = ConvBNReLU(ham_channels, ham_channels, 1, with_bn=True,
                                   with_relu=False, bn_eps=bn_eps,
                                   bn_momentum=bn_momentum, dtype=dtype)
@@ -111,7 +117,7 @@ class Hamburger(nn.Module):
         elif bases is None:
             bases = seeded_bases(B, self.ham_channels, self.md_r, x.device)
         flat = nmf2d(enjoy.reshape(B, H * W, self.ham_channels), bases,
-                     train=self.training)
+                     train=self.training, one_step_grad=self.one_step_grad)
         enjoy = flat.reshape(B, H, W, self.ham_channels).to(x.dtype)
         enjoy = self.ham_out(enjoy)
         return F.relu(x + enjoy)
@@ -125,16 +131,18 @@ class LightHamHead(nn.Module):
                  ham_channels: int = 512, num_classes: int = 40,
                  dropout_ratio: float = 0.1, align_corners: bool = False,
                  bn_eps: float = 1e-3, bn_momentum: float = 0.1,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 one_step_grad: bool = True):
         super().__init__()
         self.in_index = tuple(in_index)
         self.align_corners = align_corners
         bn = dict(bn_eps=bn_eps, bn_momentum=bn_momentum, dtype=dtype)
         self.squeeze = ConvBNReLU(sum(in_channels), ham_channels, 1, **bn)
-        self.hamburger = Hamburger(ham_channels, **bn)
+        self.hamburger = Hamburger(ham_channels, **bn,
+                                   one_step_grad=one_step_grad)
         self.align = ConvBNReLU(ham_channels, channels, 1, **bn)
         self.dropout = Dropout(dropout_ratio)
-        self.conv_seg = Conv2d(channels, num_classes, 1, dtype=dtype)
+        self.conv_seg = RoundedConv2d(channels, num_classes, 1, dtype=dtype)
 
     def forward(self, inputs, bases: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):

@@ -8,6 +8,10 @@ memory and no copy is made. GELU is the exact erf form everywhere.
 
 State-dict key names follow the reference (torch) model, so that
 `dformer_tpu.utils.convert.convert_model_state` reads a port state_dict.
+
+Fresh init is the JAX package's (`dformer_tpu/models/nn.py`): Linear and
+conv weights uniform in +-sqrt(3 / fan_in), biases uniform in
++-1 / sqrt(fan_in).
 """
 
 import math
@@ -36,9 +40,8 @@ class Linear(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features))
-        bound = 1.0 / math.sqrt(in_features)
-        _uniform_(self.weight, bound)
-        _uniform_(self.bias, bound)
+        _uniform_(self.weight, math.sqrt(3.0 / in_features))
+        _uniform_(self.bias, 1.0 / math.sqrt(in_features))
 
     def forward(self, x):
         dt = self.dtype or x.dtype
@@ -51,24 +54,53 @@ class Conv2d(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0, groups: int = 1,
-                 bias: bool = True, dtype: Optional[torch.dtype] = None):
+                 bias: bool = True, dilation: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
         self.stride, self.padding, self.groups = stride, padding, groups
+        self.dilation = dilation
         self.weight = nn.Parameter(
             torch.empty(out_ch, in_ch // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
-        bound = 1.0 / math.sqrt(in_ch // groups * kernel_size * kernel_size)
-        _uniform_(self.weight, bound)
+        fan_in = in_ch // groups * kernel_size * kernel_size
+        _uniform_(self.weight, math.sqrt(3.0 / fan_in))
         if self.bias is not None:
-            _uniform_(self.bias, bound)
+            _uniform_(self.bias, 1.0 / math.sqrt(fan_in))
 
     def forward(self, x):
         dt = self.dtype or x.dtype
         b = None if self.bias is None else self.bias.to(dt)
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), b,
-                     self.stride, self.padding, 1, self.groups)
+                     self.stride, self.padding, self.dilation, self.groups)
         return y.permute(0, 2, 3, 1).contiguous()
+
+
+class RoundedLinear(Linear):
+    """`Linear` whose product is rounded to the compute dtype before the
+    bias is added in that dtype, as the JAX `Linear` computes `x @ k + b`.
+    (`F.linear` with a bias rounds once, after the add.) In bf16 the lidar
+    expansion and the decode heads then round where the JAX modules do."""
+
+    def forward(self, x):
+        dt = self.dtype or x.dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+class RoundedConv2d(Conv2d):
+    """`Conv2d` whose product is rounded to the compute dtype before the
+    bias is added in that dtype, as the JAX `Conv` computes it (`F.conv2d`
+    with a bias rounds once, after the add): the decode heads' convs. The
+    encoder keeps `Conv2d`'s one rounding."""
+
+    def forward(self, x):
+        dt = self.dtype or x.dtype
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), None,
+                     self.stride, self.padding, self.dilation, self.groups)
+        y = y.permute(0, 2, 3, 1)
+        if self.bias is not None:
+            return y + self.bias.to(dt)
+        return y.contiguous()
 
 
 class LayerNorm(nn.Module):
@@ -165,7 +197,8 @@ class Dropout(nn.Module):
 
 
 class ConvBNReLU(nn.Module):
-    """mmcv ConvModule equivalent (conv + optional BN + optional ReLU).
+    """mmcv ConvModule equivalent (conv + optional BN + optional ReLU), in
+    the decode heads: the conv is a `RoundedConv2d`.
 
     conv_bias None follows ConvModule's bias='auto' rule: a bias iff there
     is no norm."""
@@ -177,8 +210,8 @@ class ConvBNReLU(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         use_bias = conv_bias if conv_bias is not None else not with_bn
-        self.conv = Conv2d(in_ch, out_ch, kernel_size, 1, kernel_size // 2,
-                           bias=use_bias, dtype=dtype)
+        self.conv = RoundedConv2d(in_ch, out_ch, kernel_size, 1,
+                                  kernel_size // 2, bias=use_bias, dtype=dtype)
         self.bn = (BatchNorm(out_ch, eps=bn_eps, momentum=bn_momentum)
                    if with_bn else None)
         self.with_relu = with_relu

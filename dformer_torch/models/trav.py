@@ -22,21 +22,9 @@ import torch
 from torch import nn
 
 from dformer_torch.models.encoder import VARIANTS, DFormer
-from dformer_torch.models.nn import Linear
+from dformer_torch.models.nn import RoundedLinear
 
 LIDAR_BEAMS = 360
-
-
-class ExpansionLinear(Linear):
-    """`Linear` whose product is rounded to the compute dtype before the
-    bias is added in that dtype, as the JAX `Linear` computes `x @ k + b`.
-    (`F.linear` with a bias rounds once, after the add.) In bf16 the lidar
-    expansion then rounds at the same places as the JAX module."""
-
-    def forward(self, x):
-        dt = self.dtype or x.dtype
-        return nn.functional.linear(x.to(dt), self.weight.to(dt)) \
-            + self.bias.to(dt)
 
 
 class MultiHeadAttention(nn.Module):
@@ -48,7 +36,7 @@ class MultiHeadAttention(nn.Module):
     input's dtype and the fp32 parameters (fp32 for a bf16 input), the
     logits are computed in fp32 from q / sqrt(head dim), and the softmax is
     cast to v's dtype before the second product; `out_proj` computes in
-    `dtype` (an `ExpansionLinear`). A query whose batch is 1 is broadcast
+    `dtype` (a `RoundedLinear`). A query whose batch is 1 is broadcast
     over the key's batch."""
 
     def __init__(self, embed_dim: int, num_heads: int,
@@ -61,7 +49,7 @@ class MultiHeadAttention(nn.Module):
         bound = math.sqrt(6.0 / (E + E))  # xavier_uniform of each third
         with torch.no_grad():
             self.in_proj_weight.uniform_(-bound, bound)
-        self.out_proj = ExpansionLinear(E, E, dtype=dtype)
+        self.out_proj = RoundedLinear(E, E, dtype=dtype)
 
     def forward(self, query, key, value):
         E, nh = self.embed_dim, self.num_heads
@@ -97,12 +85,12 @@ class Attention1Dto2D(nn.Module):
         self.input_len, self.mid_len, self.output_len = \
             input_len, mid_len, output_len
         self.embed_dim = embed_dim
-        self.input_proj = ExpansionLinear(1, embed_dim, dtype=dtype)
+        self.input_proj = RoundedLinear(1, embed_dim, dtype=dtype)
         self.query1 = nn.Parameter(torch.randn(mid_len, embed_dim))
         self.attn1 = MultiHeadAttention(embed_dim, num_heads, dtype=dtype)
         self.query2 = nn.Parameter(torch.randn(output_len, embed_dim))
         self.attn2 = MultiHeadAttention(embed_dim, num_heads, dtype=dtype)
-        self.output_proj = ExpansionLinear(embed_dim, 1, dtype=dtype)
+        self.output_proj = RoundedLinear(embed_dim, 1, dtype=dtype)
 
     def forward(self, scan):
         B = scan.shape[0]

@@ -1,5 +1,5 @@
-"""Evaluate DFormer + LightHamHead on a config's val split (counterpart of
-`tools/eval.py`):
+"""Evaluate DFormer + the config's decode head (its `decoder` and `aux_rate`)
+on the config's val split (counterpart of `tools/eval.py`):
 
     python -m dformer_torch.tools.eval --config=local_configs.NYUDepthv2.DFormer_Large \\
         [--continue_fpath=ckpt.pth] [--no-mst] [--sliding] [--amp] \\

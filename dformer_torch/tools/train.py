@@ -1,5 +1,5 @@
-"""Train DFormer + LightHamHead from a config on one card (counterpart of
-`tools/train.py`):
+"""Train DFormer + the config's decode head from a config on one card
+(counterpart of `tools/train.py`):
 
     python -m dformer_torch.tools.train --config=local_configs.NYUDepthv2.DFormer_Large \\
         [--synthetic-data] [--epochs=N] [--continue_fpath=epoch-E_miou_M.pth] \\
@@ -15,6 +15,11 @@ cfg.checkpoint_dir. SIGTERM or SIGINT stops after the step in flight and
 saves the state as a rescue checkpoint to resume from with
 --continue_fpath. The encoder is loaded and frozen when
 cfg.pretrained_model exists, else everything trains from scratch.
+
+The head is the config's `decoder` ("ham", "MLPDecoder", "UPernet",
+"deeplabv3+", "nl"; any other name builds the FCN-32s fallback), and the
+FCN aux head's loss is weighted by its `aux_rate` (UPernet, deeplabv3+ and
+nl carry the aux head whatever the rate; ham only when it is not 0).
 """
 
 import argparse

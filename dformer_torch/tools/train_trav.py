@@ -5,8 +5,8 @@
         [--labeled_csv=labeled.csv] [--unlabeled_csv=unlabeled.csv] \\
         [--epochs=N] [--save_dir=DIR] [--no-amp] [--device=cuda]
 
-DFormerTrav-Base + LightHamHead trains from scratch (no pretrained load)
-with supervision on the labelled rows of --labeled_csv (default
+DFormerTrav-Base + the config's decoder (the aux head's loss weighted by
+cfg.aux_rate) trains from scratch (no pretrained load) with supervision on the labelled rows of --labeled_csv (default
 cfg.train_source; batch cfg.batch_size, mirrored at random, bf16 compute
 on fp32 parameters unless --no-amp), then writes an argmax mask for every
 row of --unlabeled_csv (default cfg.eval_source) and the manifest
@@ -92,7 +92,8 @@ def run(cfg, args, datasets=None) -> dict:
                 loss = train_step(model, optimizer, schedule, out["step"],
                                   rgb, gt, laser,
                                   prep.step_generator(out["step"]),
-                                  ignore_index=cfg.background)
+                                  ignore_index=cfg.background,
+                                  aux_rate=cfg.get("aux_rate", 0.0))
                 out["step"] += 1
             loss = None if loss is None else float(loss)
             out["losses"][epoch] = loss

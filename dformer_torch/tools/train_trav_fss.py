@@ -6,8 +6,8 @@
         [--class-episodes [--queries=1] [--contrastive-weight=0.1]] \\
         [--no-amp] [--device=cuda]
 
-DFormerTrav-Base + LightHamHead (bf16 compute on fp32 parameters unless
---no-amp) trains on episodes of cfg.shots support images and one query
+DFormerTrav-Base + the config's decoder (bf16 compute on fp32 parameters
+unless --no-amp) trains on episodes of cfg.shots support images and one query
 (batch cfg.batch_size) with `meta_forward`'s fused logits; only the lidar
 expansion, stage 0 and the decoder train. With --class-episodes the
 episodes are class-grouped (K = cfg.shots support and --queries query

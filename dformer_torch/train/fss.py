@@ -23,6 +23,7 @@ from dformer_torch.ops.metrics import Metrics
 from dformer_torch.ops.resize import resize_bilinear
 from dformer_torch.train.loop import (AUGMENT_STREAM, STEP_STREAM, _to_device,
                                       derived_seed)
+from dformer_torch.train.optim import zero_missing_grads
 
 # parameter name prefixes the FSS recipe trains
 FSS_TRAINABLE = ("encoder_backbone.attn_expand_e.",
@@ -78,6 +79,7 @@ def fss_train_step(model, optimizer: torch.optim.Optimizer, schedule,
                                torch.round(qm).long())
         loss = loss + contrastive_weight * con
     loss.backward()
+    zero_missing_grads(optimizer)
     optimizer.step()
     if with_con:
         return loss.detach(), con.detach()

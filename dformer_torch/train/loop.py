@@ -1,6 +1,7 @@
 """Training (counterpart of `dformer_tpu/train/loop.py`): one step (forward
-in train mode with BatchNorm batch statistics, masked cross entropy,
-backward, the optimizer at the schedule's rate) and the epoch loop
+in train mode with BatchNorm batch statistics, masked cross entropy plus
+`aux_rate` times the aux head's, backward, the optimizer at the schedule's
+rate) and the epoch loop
 `Trainer`, which augments each uint8 batch on the device and steps.
 
 Every random draw is seeded from the run's seed and a counter, never from
@@ -20,6 +21,7 @@ from dformer_torch.data.augment import device_train_augment
 from dformer_torch.data.loader import val_x_stats
 from dformer_torch.ops.loss import softmax_cross_entropy_masked_mean
 from dformer_torch.train.audit import coverage_audit, param_paths
+from dformer_torch.train.optim import zero_missing_grads
 
 # the two seed streams of `derived_seed`
 AUGMENT_STREAM, STEP_STREAM = 0, 1
@@ -64,10 +66,17 @@ def train_step(model, optimizer: torch.optim.Optimizer,
                schedule: Callable[[int], float], step: int, rgb, gt, modal_x,
                generator: torch.Generator,
                bases: Optional[torch.Tensor] = None,
-               ignore_index: int = 255, with_coverage_flags: bool = False):
+               ignore_index: int = 255, with_coverage_flags: bool = False,
+               aux_rate: float = 0.0):
     """Take optimizer step number `step` (0-based) on one batch and return
     the loss (a 0-d tensor on the model's device, detached), and with
     `with_coverage_flags` also `coverage_flags` of the step.
+
+    The loss is the masked cross entropy of the logits plus `aux_rate`
+    times that of the aux head's logits when the model has an aux head and
+    the rate is not 0. An aux head still runs at rate 0 (its BatchNorm
+    statistics move) and gets zero gradients, which the optimizer's decay
+    acts on, as in the JAX step.
 
     The learning rate of step k is `schedule(k)`, written into the parameter
     groups before the update, so step 0 of a warm-up runs at rate 0.
@@ -80,10 +89,14 @@ def train_step(model, optimizer: torch.optim.Optimizer,
     # the model's, not the optimizer's: frozen parameters get gradients too
     model.zero_grad(set_to_none=True)
     model.train()
-    logits, _ = model.forward_with_aux(rgb, modal_x, bases=bases,
-                                       generator=generator)
+    logits, aux = model.forward_with_aux(rgb, modal_x, bases=bases,
+                                         generator=generator)
     loss = softmax_cross_entropy_masked_mean(logits, gt, ignore_index)
+    if aux is not None and aux_rate:
+        loss = loss + aux_rate * softmax_cross_entropy_masked_mean(
+            aux, gt, ignore_index)
     loss.backward()
+    zero_missing_grads(optimizer)
     optimizer.step()
     if with_coverage_flags:
         return loss.detach(), coverage_flags(model, optimizer)
@@ -182,7 +195,8 @@ class Trainer:
             out = train_step(self.model, self.optimizer, self.schedule,
                              self.step, rgb, gt, modal_x, self._step_gen,
                              ignore_index=self.cfg.background,
-                             with_coverage_flags=not self._audited)
+                             with_coverage_flags=not self._audited,
+                             aux_rate=self.cfg.get("aux_rate", 0.0))
             self.step += 1
             if not self._audited:
                 loss, flags = out

@@ -74,3 +74,14 @@ def make_optimizer(cfg, model: nn.Module,
                                  eps=1e-8)
     return torch.optim.SGD(groups, lr=cfg.lr, momentum=cfg.momentum,
                            dampening=0.0, nesterov=False)
+
+
+def zero_missing_grads(optimizer: torch.optim.Optimizer):
+    """Give each parameter of the optimizer's groups that the backward did
+    not reach (the aux head at aux_rate 0) a zero gradient, as `jax.grad`
+    gives it: `torch.optim` skips a parameter whose gradient is None, while
+    optax decays it. Parameters in no group (frozen) stay untouched."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)

@@ -1,4 +1,5 @@
-"""The port's resize and pool ops against the JAX ops, fp32 on the CPU."""
+"""The port's resize and pool ops against the JAX ops on the CPU, fp32 (and
+bf16 for UPerHead's pyramid pool, which rounds as the JAX op does)."""
 
 import numpy as np
 import pytest
@@ -7,8 +8,11 @@ import torch
 import jax.numpy as jnp
 
 from dformer_torch.ops.pool import adaptive_avg_pool2d as t_pool
+from dformer_torch.ops.pool import global_avg_pool2d as t_gap
+from dformer_torch.models.decoders.upernet import AdaptivePool
 from dformer_torch.ops.resize import resize_bilinear as t_resize
 from dformer_tpu.ops.pool import adaptive_avg_pool2d as j_pool
+from dformer_tpu.ops.pool import global_avg_pool2d as j_gap
 from dformer_tpu.ops.resize import resize_bilinear as j_resize
 
 
@@ -32,3 +36,34 @@ def test_adaptive_avg_pool2d_matches_jax(in_hw, out_hw):
     got = t_pool(torch.from_numpy(x), out_hw).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((15, 20), (6, 6)),   # in > out
+                                          ((2, 3), (6, 6)),     # in < out
+                                          ((4, 6), (2, 2))])
+def test_pyramid_pool_rounds_as_jax(in_hw, out_hw):
+    """UPerHead's pool, fp32 within 1e-6; in bf16 the fp32 means rounded
+    once, as in the JAX op: within one bf16 ulp of its result (the two fp32
+    sums differ in order, so a value near a rounding boundary may land on
+    either side)."""
+    assert out_hw[0] == out_hw[1]
+    pool = AdaptivePool(out_hw[0])
+    x = np.random.RandomState(2).randn(2, *in_hw, 64).astype(np.float32)
+    want = np.asarray(j_pool(jnp.asarray(x), out_hw))
+    got = pool(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    want16 = np.asarray(j_pool(jnp.asarray(x, jnp.bfloat16), out_hw),
+                        np.float32)
+    got16 = pool(torch.from_numpy(x).bfloat16())
+    assert got16.dtype == torch.bfloat16
+    _, e = np.frexp(np.abs(want16))
+    ulp = np.where(want16 == 0, 0.0, np.ldexp(1.0, e - 8))
+    assert (np.abs(got16.float().numpy() - want16) <= ulp).all()
+
+
+def test_global_avg_pool2d_matches_jax():
+    x = np.random.RandomState(3).randn(2, 5, 7, 6).astype(np.float32)
+    want = np.asarray(j_gap(jnp.asarray(x)))
+    got = t_gap(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 1, 1, 6)
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)

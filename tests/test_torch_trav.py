@@ -3,10 +3,7 @@ same numpy-drawn weights: the packed-in-projection MultiHeadAttention, the
 lidar expansion (and its bf16 cast order), DFormerTrav-Base's encoder
 stages and logits at 64x96, `meta_forward` at B 1, S 1, the converter and
 the pretrained load on the Trav tree, the decay mask, the builder's
-refusals and the Trav config through `entry.build_trav`."""
-
-import re
-from pathlib import Path
+heads and refusals and the Trav config through `entry.build_trav`."""
 
 import numpy as np
 import pytest
@@ -19,7 +16,7 @@ from dformer_torch import configs as t_configs
 from dformer_torch import entry
 from dformer_torch.models import build_model as t_build_model
 from dformer_torch.models.builder import EncoderDecoder as TEncoderDecoder
-from dformer_torch.models import trav as t_trav
+from dformer_torch.models import nn as t_nn
 from dformer_torch.models.trav import Attention1Dto2D as TAttention1Dto2D
 from dformer_torch.models.trav import MultiHeadAttention as TMHA
 from dformer_torch.train.optim import decay_mask as t_decay_mask
@@ -39,7 +36,6 @@ from dformer_tpu.utils.convert import (convert_encoder_state,
 from test_torch_model import _random_variables
 
 HW = (64, 96)
-ROADMAP = Path(__file__).resolve().parents[1] / "ROADMAP.md"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -173,7 +169,7 @@ def test_attention_1d_to_2d_bf16_cast_order(expansion):
     assert _max_rel(got, want16) <= 2e-2
     assert _max_rel(got, strict16) <= CAST_LIMIT
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(t_trav.ExpansionLinear, "forward", t_trav.Linear.forward)
+        mp.setattr(t_nn.RoundedLinear, "forward", t_nn.Linear.forward)
         bias_first = bf16_port()
     others = dict(fp32=want32, bf16_in_proj=bf16_port(torch.bfloat16),
                   bias_before_rounding=bias_first)
@@ -362,12 +358,17 @@ def test_decay_mask_matches_jax_on_the_trav_tree(pair):
                                   dict(decoder="UPernet"),
                                   dict(aux_rate=0.4)])
 def test_builder_refuses_what_is_not_ported(over):
+    """Every decoder and the aux head are ported: the Trav config builds
+    with them, the head the JAX builder would make, and no message names a
+    ROADMAP item. What the builder refuses is a backbone it does not
+    know."""
     cfg = trav_cfg(**over)
-    with pytest.raises(NotImplementedError) as err:
-        t_build_model(cfg, device="cpu")
-    item = re.search(r"ROADMAP\.md Queue 1, item (\w+)", str(err.value))
-    assert item, str(err.value)
-    assert f"- **{item.group(1)}. " in ROADMAP.read_text()
+    model = t_build_model(cfg, device="cpu")
+    want_aux = over.get("aux_rate", 0) != 0 or cfg.decoder == "UPernet"
+    assert (model.aux_head is not None) == want_aux
+    assert type(model.decode_head).__name__ == {
+        "ham": "LightHamHead", "MLPDecoder": "MLPDecoderHead",
+        "UPernet": "UPerHead"}[cfg.decoder]
     with pytest.raises(ValueError, match="unknown backbone"):
         TEncoderDecoder(backbone="DFormerTrav-Large")
 
