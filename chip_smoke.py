@@ -85,6 +85,23 @@ Phases, each printing JSON lines:
                    with UPernet and aux_rate 0.4: 2 epochs of 3 steps, an
                    fp32 MSF + flip evaluation of 4 images, a rescue
                    checkpoint whose logits a fresh model reproduces
+ 18. convergence - tools.smoke_convergence.main at its defaults: 600
+                   bf16 steps of DFormer-Tiny here and, side by side in a
+                   second process, of DFormerTrav-Base (--trav), on the
+                   learnable synthetic tasks; held-out
+                   mIoU >= 60, losses finite and falling from the first 100
+                   steps to the last 100, both kernels in every step
+ 19. tools       - the port's measurement tools, each at its defaults in
+                   this process, each JSON line parsed and its numbers
+                   finite and positive: dformer_torch.bench (whose labels
+                   must equal entry.infer's on the same weights and
+                   inputs), tools.latency, tools.benchmark,
+                   tools.train_bench, tools.eval_bench (MSF + flip, and
+                   --sliding); then trace_forward.trace for every head,
+                   serving and training; launches counted
+The native loader (dformer_torch/native/loader.cpp) has no phase: the card
+machine has no libjpeg / libpng headers to build it (PERF.md section 7);
+the CPU tests hold it against the Python loader and the JAX one.
 Then the kernel summary line, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; nothing is caught. Exits non-zero
 before printing any result when CUDA is unavailable.
@@ -92,6 +109,7 @@ before printing any result when CUDA is unavailable.
 
 import contextlib
 import copy
+import io
 import json
 import os
 import re
@@ -176,7 +194,13 @@ FSS_LIDAR_BIAS = r"encoder_backbone\.attn_expand_e\..*bias"
 FSS_LIDAR_BIAS_GRAD = 3e-4
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -2013,10 +2037,191 @@ def phase_decoders_fit(smi):
     return launches
 
 
+CONVERGENCE_MIN_MIOU = 60.0
+CONVERGENCE_WINDOW = 100  # steps averaged at each end of the loss curve
+
+
+# Trav's smoke in its own process, beside Tiny's in this one: each 600-step
+# run is host-bound (one Python thread launching small kernels) and the card
+# has room for both
+TRAV_SMOKE = ("import json; from dformer_torch.kernels.fused_mlp import "
+              "fused_mlp; from dformer_torch.tools import smoke_convergence "
+              "as s; r = s.main(['--trav']); r['totals'] = "
+              "[fused_mlp.launches, fused_mlp.backward_launches]; "
+              "print(json.dumps(r))")
+
+
+def phase_convergence(smi):
+    """`tools.smoke_convergence.main` at its defaults (600 steps, bf16,
+    min mIoU 60) for DFormer-Tiny here and, at the same time, for
+    DFormerTrav-Base (--trav) in a second process (TRAV_SMOKE), whose
+    kernel counts start at 0: the tool raises below the mIoU; here also
+    every step's forward and backward launches (one per fused MLP of the
+    encoder each way), finite losses, and the mean loss of the last
+    CONVERGENCE_WINDOW steps below that of the first. Returns {task: the
+    run's (forward, backward) launches}."""
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+    from dformer_torch.tools import smoke_convergence
+
+    child = subprocess.Popen(
+        [sys.executable, "-c", TRAV_SMOKE], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        fused_mlp.launches = fused_mlp.backward_launches = 0
+        runs = {"tiny": smoke_convergence.main([])}
+        runs["tiny"]["totals"] = [fused_mlp.launches,
+                                  fused_mlp.backward_launches]
+        text, _ = child.communicate(timeout=900)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    print(text, end="", flush=True)
+    check(child.returncode == 0, f"convergence trav: exit {child.returncode}")
+    runs["trav"] = json.loads(text.strip().splitlines()[-1])
+
+    out = {}
+    for task, variant in (("tiny", "DFormer-Tiny"), ("trav", "DFormer-Base")):
+        r = runs[task]
+        per_pass = sum(n for *_, n in mlp_shapes(variant))
+        out[task] = tuple(r["totals"])
+        losses = r["losses"]
+        first = statistics.mean(losses[:CONVERGENCE_WINDOW])
+        last = statistics.mean(losses[-CONVERGENCE_WINDOW:])
+        bad_steps = [i for i, n in enumerate(r["launches"])
+                     if tuple(n) != (per_pass, per_pass)]
+        emit({"phase": "convergence", "task": task,
+              "steps": len(losses), "held_out_miou": r["miou"],
+              "per_class_iou": r["ious"], "limit_miou": CONVERGENCE_MIN_MIOU,
+              "mean_loss_first_100": first, "mean_loss_last_100": last,
+              "final_loss": losses[-1], "seconds": r["seconds"],
+              "ms_per_step": r["ms_per_step"],
+              "launches_per_step": list(r["launches"][0]),
+              "launches": list(out[task]), "card": smi})
+        check(all(np.isfinite(losses)), f"convergence {task}: loss not "
+              "finite")
+        check(last < first, f"convergence {task}: loss {first} -> {last}")
+        check(r["miou"] >= CONVERGENCE_MIN_MIOU,
+              f"convergence {task}: mIoU {r['miou']}")
+        check(not bad_steps, f"convergence {task}: steps {bad_steps[:5]} "
+              f"did not launch {per_pass} + {per_pass} kernels")
+    return out
+
+
+def run_tool(main, argv, keys):
+    """Call a tool's `main(argv)` in this process, echo what it prints, and
+    return (its JSON records, main's result); every record's `keys` must be
+    finite and positive."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    records = [json.loads(line) for line in text.splitlines()
+               if line.startswith("{")]
+    check(records, f"{main.__module__}: no JSON line")
+    for rec in records:
+        check_positive(rec, keys, main.__module__)
+    return records, result
+
+
+def check_positive(record, keys, who):
+    for key in keys:
+        v = record.get(key)
+        check(isinstance(v, (int, float)) and np.isfinite(v) and v > 0,
+              f"{who}: {key} = {v!r}")
+
+
+def phase_tools(smi):
+    """Each measurement tool of the port at its defaults (`run_tool`); the
+    bench's labels against `entry.infer` of a model built apart from the
+    same seed on the same inputs; the forward kernel's launches in the
+    bench, latency and train_bench runs exact; then
+    `trace_forward.trace` of every head, serving and training. Returns
+    {tool: (forward, backward) launches}."""
+    import torch
+
+    from dformer_torch import bench, entry, trace_forward
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+    from dformer_torch.tools import (benchmark, eval_bench, latency,
+                                     train_bench)
+
+    per_pass = sum(n for *_, n in mlp_shapes())
+    launches = {}
+
+    seconds = {}
+
+    def counted(name, fn):
+        fused_mlp.launches = fused_mlp.backward_launches = 0
+        t0 = time.perf_counter()
+        result = fn()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = (fused_mlp.launches, fused_mlp.backward_launches)
+        return result
+
+    records, labels = counted("bench", lambda: run_tool(
+        bench.main, [], ("value", "vs_baseline", "forward_ms")))
+    check(len(records) == 2, f"bench: {len(records)} records")
+    check_positive(records[1], ("train_step_ms_bs8",
+                                "train_imgs_per_sec_per_chip"), "bench")
+    model = entry.build("DFormer-Large", HW, NUM_CLASSES, torch.bfloat16,
+                        "cuda", seed=0)
+    rgb, modal = bench.inputs(np.random.RandomState(0), BATCH, HW, "cuda")
+    same = bool(torch.equal(entry.infer(model, rgb, modal), labels))
+    del model
+    emit({"phase": "tools", "tool": "bench", "record": records[1],
+          "labels_equal_entry_infer": same, "launches": launches["bench"],
+          "card": smi})
+    check(same, "bench: labels differ from entry.infer's")
+    check(launches["bench"] == (per_pass * 46, per_pass * 23),
+          f"bench: {launches['bench']} launches, expected "
+          f"{per_pass} x (23 forwards + 23 steps) and {per_pass} x 23")
+
+    counted("latency", lambda: run_tool(latency.main, [],
+                                        ("avg_ms", "p50_ms", "p90_ms")))
+    check(launches["latency"] == (per_pass * 120, 0),
+          f"latency: {launches['latency']} launches")
+    counted("benchmark", lambda: run_tool(benchmark.main, [],
+                                          ("params", "flops")))
+    check(launches["benchmark"] == (0, 0), "benchmark: counted on the "
+          "card, not on the CPU's plain path")
+    counted("train_bench", lambda: run_tool(
+        train_bench.main, [], ("step_ms", "img_per_s", "epoch_seconds")))
+    check(launches["train_bench"] == (per_pass * 23, per_pass * 23),
+          f"train_bench: {launches['train_bench']} launches")
+    for mode, argv in (("eval_bench_msf_flip", []),
+                       ("eval_bench_sliding", ["--sliding"])):
+        counted(mode, lambda: run_tool(
+            eval_bench.main, argv, ("ms_per_image", "img_per_s")))
+        check(launches[mode][0] > 0 and launches[mode][1] == 0,
+              f"{mode}: {launches[mode]} launches")
+
+    traces = {}
+    for decoder in trace_forward.DECODERS:
+        for mode in ("forward", "train"):
+            torch.cuda.empty_cache()
+            rec = counted(f"trace_{decoder}_{mode}",
+                          lambda: trace_forward.trace(mode, decoder))
+            what = "step" if mode == "train" else "forward"
+            rec = {k: v for k, v in rec.items() if k != "top"} | {
+                "top": rec["top"][:8]}
+            emit({"phase": "tools", "tool": "trace_forward", "mode": mode,
+                  **rec})
+            kernel_ms = rec[f"device_kernel_ms_per_{what}"]
+            check(np.isfinite(kernel_ms) and kernel_ms > 0
+                  and rec[f"fused_mlp_ms_per_{what}"] > 0,
+                  f"trace {decoder} {mode}: {kernel_ms} ms of kernels")
+            traces[f"{decoder}_{mode}"] = kernel_ms
+    emit({"phase": "tools", "device_kernel_ms": traces,
+          "launches": launches, "seconds": seconds, "card": smi})
+    return launches
+
 
 def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                    fit_launches, trav_rows, trav_launches, fss_launches,
-                   decoder_launches, decoders_fit_launches):
+                   decoder_launches, decoders_fit_launches, convergence_launches,
+                   tool_launches):
     """One entry per kernel: times per forward or per train step (each
     shape's time times its launches, summed over the main-path shapes).
     `launches` are those of the serving path's run for the forward kernel
@@ -2029,7 +2234,9 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
     forward, torch.matmul of its two products. The `trav_*` keys are the
     same sums over the 8 shapes of an FSS step's encoder pass (B 12). The
     `*_decoders*` keys are the launches of the decoder phases: per forward
-    and per step for each head, and in the UPernet train tool's run."""
+    and per step for each head, and in the UPernet train tool's run;
+    `launches_in_convergence` and `launches_in_tools` those of the last two
+    phases."""
     from dformer_torch.kernels.fused_mlp import (REPLACES, REPLACES_BWD,
                                                  SOURCE, SOURCE_BWD)
 
@@ -2078,6 +2285,10 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                   "launches_per_step_in_decoders": {
                       k: v[1][0] for k, v in decoder_launches.items()},
                   "launches_in_decoders_fit": decoders_fit_launches[0],
+                  "launches_in_convergence": {
+                      k: v[0] for k, v in convergence_launches.items()},
+                  "launches_in_tools": {k: v[0]
+                                        for k, v in tool_launches.items()},
                   "products_library_ms": total(rows, "launches_per_forward",
                                                "products_library_ms"),
                   **trav(trav_rows[0], "launches_per_forward",
@@ -2092,6 +2303,10 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                   "launches_per_step_in_decoders": {
                       k: v[1][1] for k, v in decoder_launches.items()},
                   "launches_in_decoders_fit": decoders_fit_launches[1],
+                  "launches_in_convergence": {
+                      k: v[1] for k, v in convergence_launches.items()},
+                  "launches_in_tools": {k: v[1]
+                                        for k, v in tool_launches.items()},
                   "stage_ms": stages,
                   "wgrad_library_ms": total(rows_bwd, per,
                                             "wgrad_library_ms"),
@@ -2124,9 +2339,12 @@ def main():
     decoder_launches = phase_decoders(smi)
     phase_decoders_cpu_vs_card(smi)
     decoders_fit_launches = phase_decoders_fit(smi)
+    convergence_launches = phase_convergence(smi)
+    tool_launches = phase_tools(smi)
     emit(kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                         fit_launches, trav_rows, trav_launches, fss_launches,
-                        decoder_launches, decoders_fit_launches))
+                        decoder_launches, decoders_fit_launches,
+                        convergence_launches, tool_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
-"""Batching + prefetch loader (counterpart of `dformer_tpu/data/loader.py`).
+"""Batching + prefetch loaders (counterpart of `dformer_tpu/data/loader.py`).
 
-A thread pool decodes the items of a batch in parallel (cv2 and numpy
-release the GIL) and a worker thread keeps `prefetch` collated batches
-ready. `Loader(shard=(rank, world))` reads only this process's slice of the
-indices. `device_val_batches` normalises the val batches on the device.
+`Loader`: a thread pool decodes the items of a batch in parallel (cv2 and
+numpy release the GIL) and a worker thread keeps `prefetch` collated
+batches ready. `NativeBatchLoader`: the C++ decode pool
+(`data/native_loader.py`) decodes whole batches into reusable buffers.
+`shard=(rank, world)` reads only this process's slice of the indices.
+`device_val_batches` normalises the val batches on the device.
 """
 
+import os.path as osp
 import queue
 import threading
 from typing import Iterator, Optional
@@ -14,7 +17,8 @@ import numpy as np
 import torch
 
 from dformer_torch.data.augment import normalize_batch
-from dformer_torch.data.datasets import RGBXDataset, SyntheticRGBXDataset
+from dformer_torch.data.datasets import (RGBXDataset, SyntheticRGBXDataset,
+                                         gt_transform)
 
 
 class Loader:
@@ -127,11 +131,96 @@ class Loader:
             t.join()
 
 
+class NativeBatchLoader:
+    """Batches of an `RGBXDataset` decoded by the C++ pool: batch k + 1 is
+    decoded into one of two reusable uint8 buffer sets while batch k is
+    consumed, with no Python in the decode path.
+
+    Every image must decode at the canvas `hw` (the config's image size),
+    as NYUDepthv2's do; a file of another size raises. X is decoded as
+    grayscale and repeated to 3 channels, labels go through `gt_transform`
+    when the dataset asks for it. Each yielded array is a copy: the decode
+    after next overwrites the buffer it came from. Same batches, order,
+    epochs and shards as `Loader`. Raises if the library cannot be built or
+    loaded."""
+
+    def __init__(self, dataset, batch_size: int, hw, shuffle=False,
+                 drop_last=False, seed=0, shard=(0, 1), num_threads=4):
+        from dformer_torch.data.native_loader import NativeLoader
+
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.hw = hw
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.shard = shard
+        self.epoch = 0
+        self._nl = NativeLoader(num_threads)
+
+    set_epoch = Loader.set_epoch
+    __len__ = Loader.__len__
+    _indices = Loader._indices
+
+    def _paths(self, index):
+        """(rgb, gt, x) paths of a dataset item, as `RGBXDataset` reads."""
+        item = self.dataset._name(index).split("\t")
+        item[-1] = item[-1].strip()
+        s = self.dataset._s
+        return (osp.join(s["rgb_root"], item[0].replace("RGB/", "")),
+                osp.join(s["gt_root"], item[-1].replace("Label/", "")),
+                osp.join(s["x_root"], item[-1].replace("Label/", "")))
+
+    def __iter__(self) -> Iterator[dict]:
+        idx = self._indices()
+        B = self.batch_size
+        nb = len(idx) // B if self.drop_last else (len(idx) + B - 1) // B
+        H, W = self.hw
+        bufs = [dict(rgb=np.empty((B, H, W, 3), np.uint8),
+                     gt=np.empty((B, H, W, 1), np.uint8),
+                     x=np.empty((B, H, W, 1), np.uint8)) for _ in range(2)]
+        submitted = []
+
+        def submit(k):
+            rows = idx[k * B:(k + 1) * B]
+            paths = [self._paths(int(i)) for i in rows]
+            slot, n = bufs[k % 2], len(rows)
+            tickets = [self._nl.submit([p[j] for p in paths],
+                                       slot[key][:n], key == "rgb")
+                       for j, key in enumerate(("rgb", "gt", "x"))]
+            submitted.extend(tickets)
+            return tickets, n, slot
+
+        try:
+            pending = submit(0) if nb else None
+            for k in range(nb):
+                tickets, n, slot = pending
+                pending = submit(k + 1) if k + 1 < nb else None
+                for t in tickets:
+                    self._nl.wait(t)
+                gt = slot["gt"][:n, ..., 0].astype(np.int32)
+                if self.dataset._s["transform_gt"]:
+                    gt = gt_transform(gt)
+                yield dict(rgb=slot["rgb"][:n].copy(), gt=gt,
+                           modal_x=np.repeat(slot["x"][:n], 3, axis=-1),
+                           fn=[str(i) for i in idx[k * B:(k + 1) * B]])
+        finally:
+            # an epoch left early or a failed decode: the pool's threads may
+            # still write into the buffers, which must outlive them (a wait
+            # on a finished batch returns at once)
+            for t in submitted:
+                try:
+                    self._nl.wait(t)
+                except IOError:
+                    pass  # that batch is discarded
+
+
 def train_batches(cfg, dataset_cls=None, shard=(0, 1),
-                  synthetic: bool = False):
+                  synthetic: bool = False, native: bool = False):
     """The training loader: an epoch is batch_size * niters_per_epoch items
     by oversampling; each of `world` processes loads batch_size // world
-    rows per step."""
+    rows per step. native: decode with `NativeBatchLoader` (files on disk
+    at the config's canvas; raises if the library cannot be built)."""
     rank, world = shard
     if cfg.batch_size % world:
         raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
@@ -139,12 +228,20 @@ def train_batches(cfg, dataset_cls=None, shard=(0, 1),
     local_bs = cfg.batch_size // world
     file_length = cfg.batch_size * cfg.niters_per_epoch
     if synthetic:
+        if native:
+            raise ValueError("the native loader decodes files on disk; "
+                             "synthetic data has none")
         ds = SyntheticRGBXDataset(cfg.num_train_imgs,
                                   (cfg.image_height, cfg.image_width),
                                   cfg.num_classes, file_length=file_length)
     else:
         ds = (dataset_cls or RGBXDataset)(_data_setting(cfg), "train",
                                           file_length=file_length)
+        if native:
+            return NativeBatchLoader(
+                ds, local_bs, (cfg.image_height, cfg.image_width),
+                shuffle=True, drop_last=True, seed=cfg.get("seed", 0),
+                shard=shard)
     return Loader(ds, local_bs, shuffle=True, drop_last=True,
                   seed=cfg.get("seed", 0), shard=shard)
 

@@ -4,7 +4,7 @@
     python -m dformer_torch.tools.train --config=local_configs.NYUDepthv2.DFormer_Large \\
         [--synthetic-data] [--epochs=N] [--continue_fpath=epoch-E_miou_M.pth] \\
         [--no-amp] [--val_amp] [--no-mst] [--sliding] [--val_batch_size=4] \\
-        [--debug_nans] [--device=cuda]
+        [--debug_nans] [--native-loader] [--device=cuda]
 
 Each epoch augments the train batches on the card and steps (bf16 compute
 on fp32 parameters unless --no-amp); epoch 1, every 10th and every epoch
@@ -57,7 +57,9 @@ def parse_args(argv=None):
                     help="override cfg.nepochs")
     ap.add_argument("--synthetic-data", action="store_true",
                     help="random images instead of datasets on disk")
-    ap.add_argument("--native-loader", action="store_true")
+    ap.add_argument("--native-loader", action="store_true",
+                    help="decode the train files with the C++ pool "
+                         "(dformer_torch/native/loader.cpp)")
     ap.add_argument("--val_batch_size", type=int, default=4)
     ap.add_argument("--debug_nans", action="store_true",
                     help="raise on the first non-finite loss")
@@ -97,10 +99,6 @@ def run(cfg, args, guard=None) -> dict:
     installed on SIGTERM and SIGINT for the run). Returns {"trainer",
     "checkpoints" (the CheckpointManager), "best_miou", "epoch_seconds",
     "eval_seconds", "losses"}, the last three by epoch."""
-    if args.native_loader:
-        raise NotImplementedError(
-            "--native-loader is not ported yet (ROADMAP.md Queue 1, item "
-            "9b: the native loader)")
     import torch
 
     from dformer_torch import entry
@@ -136,7 +134,8 @@ def run(cfg, args, guard=None) -> dict:
         start_epoch = 1
         if args.continue_fpath:
             start_epoch = ckpt.restore(trainer, args.continue_fpath)
-        loader = train_batches(cfg, synthetic=args.synthetic_data)
+        loader = train_batches(cfg, synthetic=args.synthetic_data,
+                               native=args.native_loader)
         own_guard = guard is None
         if own_guard:
             guard = PreemptionGuard(logger=log).install()

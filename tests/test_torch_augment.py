@@ -21,6 +21,16 @@ OUT_HW = (24, 32)
 IMAGE_TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the shapes here are small, and 8 threads in each
+    of the test run's worker processes oversubscribe the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _jax_draws(key, batch, n_scales):
     """The draws `dformer_tpu.data.augment.device_train_augment` makes from
     `key`, replayed outside its jit."""

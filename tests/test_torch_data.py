@@ -28,6 +28,16 @@ from dformer_tpu.data import loader as j_loader
 NAMES = ["a", "b", "c"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the shapes here are small, and 8 threads in each
+    of the test run's worker processes oversubscribe the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
     """3 samples of mixed sizes: RGB .jpg, single-channel and 3-channel

@@ -37,6 +37,16 @@ from tests.test_torch_model import _random_variables
 NC = 5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the shapes here are small, and 8 threads in each
+    of the test run's worker processes oversubscribe the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _labels(rng, shape, nc, ignored=0.05):
     gt = rng.randint(0, nc, shape)
     return np.where(rng.rand(*shape) < ignored, 255, gt).astype(np.int32)

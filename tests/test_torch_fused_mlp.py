@@ -17,6 +17,16 @@ from dformer_tpu.kernels.fused_mlp import \
 SHAPES = [(2, 8, 12, 16, 4), (1, 7, 13, 8, 8)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the shapes here are small, and 8 threads in each
+    of the test run's worker processes oversubscribe the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _inputs(shape, seed=0):
     B, H, W, C, r = shape
     rng = np.random.RandomState(seed)

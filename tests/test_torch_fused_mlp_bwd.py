@@ -30,6 +30,16 @@ NAMES = ["dx", "dln_w", "dln_b", "dfc1_w", "dfc1_b", "dpos_w", "dpos_b",
          "dfc2_w", "dfc2_b"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the shapes here are small, and 8 threads in each
+    of the test run's worker processes oversubscribe the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _inputs(B, H, W, C, r, seed=0):
     """x, the eight parameters and the cotangent g, fp32 numpy."""
     rng = np.random.RandomState(seed)

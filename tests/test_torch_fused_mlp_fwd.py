@@ -37,6 +37,16 @@ SOURCE = (Path(__file__).resolve().parents[1] / "dformer_torch" / "kernels"
           / "csrc" / "fused_mlp_fwd.cu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the shapes here are small, and 8 threads in each
+    of the test run's worker processes oversubscribe the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _kernel_poly():
     """(coefficients, clamp) of the bf16 kernel's erf, from its source."""
     text = SOURCE.read_text()

@@ -35,6 +35,16 @@ HEADS = [("ham", 0.4), ("MLPDecoder", 0.0), ("UPernet", 0.0),
 
 
 @pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the shapes here are small, and 8 threads in each
+    of the test run's worker processes oversubscribe the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def small1():
     before = jax.config.jax_default_prng_impl
     jax.config.update("jax_default_prng_impl", "rbg")

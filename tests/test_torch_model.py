@@ -35,6 +35,16 @@ NARROW = dict(dims=(32, 64, 128, 256), depths=(1, 1, 1, 2),
 B, HW = 2, (64, 96)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the shapes here are small, and 8 threads in each
+    of the test run's worker processes oversubscribe the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _random_variables(shapes, seed):
     """Fill a flax variable-shape tree with numpy draws."""
     rng = np.random.RandomState(seed)

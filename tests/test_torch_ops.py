@@ -16,6 +16,16 @@ from dformer_tpu.ops.pool import global_avg_pool2d as j_gap
 from dformer_tpu.ops.resize import resize_bilinear as j_resize
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the shapes here are small, and 8 threads in each
+    of the test run's worker processes oversubscribe the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("align_corners", [False, True])
 @pytest.mark.parametrize("in_hw,out_hw", [((7, 9), (16, 20)),   # up
                                           ((16, 20), (5, 7)),   # down
