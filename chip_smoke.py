@@ -99,6 +99,20 @@ Phases, each printing JSON lines:
                    tools.train_bench, tools.eval_bench (MSF + flip, and
                    --sliding); then trace_forward.trace for every head,
                    serving and training; launches counted
+ 20. ddp         - data-parallel training on the one card, each rank a
+                   process started with torchrun's environment: world 1
+                   over NCCL, 3 steps of DFormer-Large + ham (bf16, bs8)
+                   bit-equal to the same steps with no process group, 39 +
+                   39 launches and one gradient all-reduce per step; world
+                   2 over gloo (2 x bs4 against 1 x bs8): a narrow fp32
+                   model's every leaf within a limit, the Large losses'
+                   differences; ms per step of each
+ 21. export      - DFormer-Large + ham (bf16) exported with a symbolic
+                   batch into a temporary .pt2, loaded in a fresh process
+                   and run at B=1 and B=8: labels equal to entry.infer's,
+                   logits within a limit of the eager model's, 39
+                   forward-kernel launches per call; artifact bytes,
+                   export / load seconds, ms per bs8 forward
 The native loader (dformer_torch/native/loader.cpp) has no phase: the card
 machine has no libjpeg / libpng headers to build it (PERF.md section 7);
 the CPU tests hold it against the Python loader and the JAX one.
@@ -2218,10 +2232,419 @@ def phase_tools(smi):
     return launches
 
 
+# the data-parallel phase: steps counted and compared, then timed; the
+# world-2 run's narrow fp32 state against world 1's, each leaf as max |diff|
+# over max(max |world 1|, DDP_STATE_FLOOR) (a leaf that stays near 0 holds
+# rounding noise: tests/test_torch_dist.py); the exported artifact's logits
+# against the eager model's, as max |diff| / max |eager|
+DDP_STEPS = 3
+DDP_TIMED = 5
+DDP_NARROW_HW = (64, 96)
+DDP_STATE_REL = 1e-5
+DDP_STATE_FLOOR = 0.1
+EXPORT_LOGITS_REL = 1e-2
+WORKER_TIMEOUT_S = 600
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(call, world, env=None):
+    """Start `world` processes of `python -c call` from the repository root
+    with torchrun's environment (RANK, LOCAL_RANK, WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT) on one card; wait for all, echo their output, fail unless
+    each exits 0, and return rank 0's last JSON line."""
+    port = str(_free_port())
+    procs = []
+    try:
+        for rank in range(world):
+            penv = dict(os.environ, RANK=str(rank), LOCAL_RANK="0",
+                        WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                        MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                        **(env or {}))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", call], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, env=penv,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+        outs = [p.communicate(timeout=WORKER_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        print(text[-4000:], end="", flush=True)
+        check(p.returncode == 0, f"worker rank {rank} of {world}: exit "
+              f"{p.returncode}")
+    lines = [ln for ln in outs[0].splitlines() if ln.startswith("{")]
+    check(lines, "worker rank 0 printed no JSON line")
+    return json.loads(lines[-1])
+
+
+def _ddp_steps(backbone, hw, batch, dtype):
+    """entry.build_trainer(backbone, seed 0) and DDP_STEPS counted steps
+    through entry.train_steps on this rank's rows of seeded global batches
+    of `batch`, under deterministic algorithms (the bilinear resize's
+    backward otherwise sums with atomics); then DDP_TIMED steps without
+    them, each timed by CUDA events. Returns {"losses", "state" (on the
+    card), "launches" per counted step, "ms_each_timed", "grad_syncs" of
+    the counted steps}."""
+    import torch
+
+    from dformer_torch import entry
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+    from dformer_torch.parallel import dist
+
+    model, optimizer, schedule, gen = entry.build_trainer(
+        backbone, hw, NUM_CLASSES, dtype, "cuda", seed=0)
+    rng = np.random.RandomState(5)
+    batches = [tuple(dist.rank_rows(t)
+                     for t in train_batch(rng, batch, hw, NUM_CLASSES))
+               for _ in range(DDP_STEPS)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    losses, launches, syncs = [], [], dist.grad_syncs
+    for k, b in enumerate(batches):
+        f0, b0 = fused_mlp.launches, fused_mlp.backward_launches
+        losses += entry.train_steps(model, optimizer, schedule, gen, [b],
+                                    first_step=k)
+        launches.append([fused_mlp.launches - f0,
+                         fused_mlp.backward_launches - b0])
+    syncs = dist.grad_syncs - syncs
+    state = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    torch.use_deterministic_algorithms(False)
+    if dist.world() > 1:
+        dist.check_replicas_equal(list(model.parameters()))
+    times = []
+    for k in range(DDP_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        entry.train_steps(model, optimizer, schedule, gen,
+                          [batches[k % DDP_STEPS]],
+                          first_step=DDP_STEPS + k)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    # the gradient all-reduce alone, on the last step's gradients (at
+    # world 2 each call doubles them; nothing reads them afterwards): of
+    # the optimizer's parameters, as the step syncs them (here every
+    # parameter), and of those left when a pretrained encoder is frozen
+    # (the tool's mask: everything outside encoder_backbone)
+    sync_ms = sync_frozen_ms = None
+    if dist.active():
+        trained = [p for g in optimizer.param_groups for p in g["params"]]
+        unfrozen = [p for n, p in model.named_parameters()
+                    if not n.startswith("encoder_backbone.")]
+        sync_ms = time_ms(lambda: dist.sync_grads(trained), reps=10,
+                          warmup=2, calls=1)
+        sync_frozen_ms = time_ms(lambda: dist.sync_grads(unfrozen), reps=10,
+                                 warmup=2, calls=1)
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return dict(losses=losses, state=state, launches=launches,
+                ms_each_timed=times, grad_syncs=syncs, sync_ms=sync_ms,
+                sync_frozen_ms=sync_frozen_ms)
+
+
+def ddp_worker(mode, out_dir):
+    """One rank of phase_ddp, in a process of its own. "nccl" (world 1):
+    DFormer-Large + ham bf16 at bs8 with no process group, the narrow fp32
+    model likewise (its state saved for the gloo run), then the group from
+    torchrun's environment (NCCL) and the Large steps again: losses and
+    every parameter and buffer against the run without the group. "gloo"
+    (world 2 on the one card): the narrow fp32 and the Large bf16 steps on
+    each rank's half of the same global batches of 8; rank 0 saves the
+    narrow state. Prints one JSON line."""
+    import torch
+    import torch.distributed
+
+    from dformer_torch.models.encoder import VARIANTS
+    from dformer_torch.parallel import dist
+
+    VARIANTS.setdefault("DFormer-Narrow", NARROW)
+    large = ("DFormer-Large", HW, BATCH, torch.bfloat16)
+    narrow = ("DFormer-Narrow", DDP_NARROW_HW, BATCH, torch.float32)
+    out = {"mode": mode}
+    if mode == "nccl":
+        alone = _ddp_steps(*large)
+        ref = _ddp_steps(*narrow)
+        torch.save({k: v.cpu() for k, v in ref["state"].items()},
+                   os.path.join(out_dir, "narrow_world1.pt"))
+        out["narrow_world1_losses"] = ref["losses"]
+        check(dist.init_from_env("cuda"), "no process group from the "
+              "environment")
+        check(torch.distributed.get_backend() == "nccl",
+              f"backend {torch.distributed.get_backend()}")
+        grouped = _ddp_steps(*large)
+        unequal = [n for n, v in alone["state"].items()
+                   if not torch.equal(v, grouped["state"][n])]
+        diff = max((alone["state"][n].float()
+                    - grouped["state"][n].float()).abs().max().item()
+                   for n in unequal) if unequal else 0.0
+        out.update(
+            world=dist.world(), backend="nccl",
+            losses_no_group=alone["losses"], losses_group=grouped["losses"],
+            launches_per_step=grouped["launches"],
+            launches_per_step_no_group=alone["launches"],
+            grad_syncs=grouped["grad_syncs"],
+            grad_syncs_no_group=alone["grad_syncs"],
+            leaves=len(alone["state"]), unequal_leaves=unequal[:10],
+            max_abs_diff=diff,
+            ms_each_timed_no_group=alone["ms_each_timed"],
+            ms_each_timed_group=grouped["ms_each_timed"],
+            sync_grads_ms=grouped["sync_ms"],
+            sync_grads_frozen_encoder_ms=grouped["sync_frozen_ms"])
+    else:
+        torch.cuda.set_device(0)
+        torch.distributed.init_process_group("gloo", init_method="env://")
+        mine = _ddp_steps(*narrow)
+        if dist.rank() == 0:
+            torch.save({k: v.cpu() for k, v in mine["state"].items()},
+                       os.path.join(out_dir, "narrow_world2.pt"))
+        big = _ddp_steps(*large)
+        out.update(world=dist.world(), backend="gloo",
+                   narrow_losses=mine["losses"], losses=big["losses"],
+                   launches_per_step=big["launches"],
+                   grad_syncs=big["grad_syncs"],
+                   ms_each_timed=big["ms_each_timed"],
+                   sync_grads_ms=big["sync_ms"],
+                   sync_grads_frozen_encoder_ms=big["sync_frozen_ms"])
+    print(json.dumps(out), flush=True)
+    if dist.active():
+        torch.distributed.destroy_process_group()
+
+
+def phase_ddp(smi):
+    """Data-parallel training on the one card. World 1 over NCCL (a process
+    started as torchrun starts one): 3 steps of DFormer-Large + ham (bf16,
+    bs8, 480x640, weights from seed 0) equal bit for bit the same steps
+    with no process group, with 39 + 39 kernel launches and one gradient
+    all-reduce per step. World 2 over gloo on the card (NCCL refuses two
+    ranks on one device), 2 x bs4 against world 1 x bs8: a narrow fp32
+    model's every leaf within DDP_STATE_REL, and the Large bf16 losses'
+    differences printed. Returns {run: (forward, backward) launches}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    per_step = sum(n for *_, n in mlp_shapes())
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    tmp = tempfile.mkdtemp(prefix="dformer_ddp_")
+    try:
+        t0 = time.perf_counter()
+        one = run_workers(f"import chip_smoke as c; c.ddp_worker('nccl', "
+                          f"{tmp!r})", 1, env)
+        t1 = time.perf_counter()
+        two = run_workers(f"import chip_smoke as c; c.ddp_worker('gloo', "
+                          f"{tmp!r})", 2, env)
+        t2 = time.perf_counter()
+        ref = torch.load(os.path.join(tmp, "narrow_world1.pt"))
+        got = torch.load(os.path.join(tmp, "narrow_world2.pt"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    worst, worst_name = 0.0, None
+    for name, want in ref.items():
+        if not want.dtype.is_floating_point:
+            check(torch.equal(got[name], want), f"gloo narrow {name}")
+            continue
+        scale = max(want.abs().max().item(), DDP_STATE_FLOOR)
+        err = (got[name] - want).abs().max().item() / scale
+        if err > worst:
+            worst, worst_name = err, name
+    loss_diff = [abs(a - b) for a, b in zip(two["losses"],
+                                            one["losses_no_group"])]
+    emit({"phase": "ddp", "model": "DFormer-Large+LightHamHead",
+          "batch": BATCH, "hw": list(HW), "dtype": "bfloat16",
+          "steps": DDP_STEPS,
+          "nccl_world1": {k: one[k] for k in (
+              "world", "losses_group", "losses_no_group", "leaves",
+              "unequal_leaves", "max_abs_diff", "launches_per_step",
+              "grad_syncs", "grad_syncs_no_group")},
+          "nccl_world1_ms_per_step": statistics.median(
+              one["ms_each_timed_group"]),
+          "no_group_ms_per_step": statistics.median(
+              one["ms_each_timed_no_group"]),
+          "nccl_world1_ms_each_timed": one["ms_each_timed_group"],
+          "no_group_ms_each_timed": one["ms_each_timed_no_group"],
+          "nccl_world1_sync_grads_ms": one["sync_grads_ms"],
+          "nccl_world1_sync_grads_frozen_encoder_ms":
+              one["sync_grads_frozen_encoder_ms"],
+          "gloo_world2": {"losses": two["losses"],
+                          "loss_abs_diff_vs_world1": loss_diff,
+                          "launches_per_step_per_rank":
+                              two["launches_per_step"],
+                          "grad_syncs": two["grad_syncs"],
+                          "ms_per_step": statistics.median(
+                              two["ms_each_timed"]),
+                          "ms_each_timed": two["ms_each_timed"],
+                          "sync_grads_ms": two["sync_grads_ms"],
+                          "sync_grads_frozen_encoder_ms":
+                              two["sync_grads_frozen_encoder_ms"]},
+          "gloo_narrow_fp32": {"batch": BATCH, "hw": list(DDP_NARROW_HW),
+                               "losses_world2": two["narrow_losses"],
+                               "losses_world1": one["narrow_world1_losses"],
+                               "max_state_rel": worst,
+                               "max_state_rel_leaf": worst_name,
+                               "limit_state_rel": DDP_STATE_REL,
+                               "state_floor": DDP_STATE_FLOOR},
+          "seconds_nccl": t1 - t0, "seconds_gloo": t2 - t1, "card": smi})
+    check(one["world"] == 1 and two["world"] == 2, "world sizes")
+    check(not one["unequal_leaves"], f"NCCL world 1 against no group: "
+          f"{one['unequal_leaves']} differ by up to {one['max_abs_diff']}")
+    check(one["losses_group"] == one["losses_no_group"],
+          f"NCCL world 1 losses {one['losses_group']} against "
+          f"{one['losses_no_group']}")
+    check(one["grad_syncs"] == DDP_STEPS
+          and one["grad_syncs_no_group"] == 0 and
+          two["grad_syncs"] == DDP_STEPS,
+          f"gradient syncs: {one['grad_syncs']} (NCCL), "
+          f"{one['grad_syncs_no_group']} (no group), {two['grad_syncs']} "
+          f"(gloo) in {DDP_STEPS} steps")
+    for name, rows in (("nccl", one["launches_per_step"]),
+                       ("no group", one["launches_per_step_no_group"]),
+                       ("gloo", two["launches_per_step"])):
+        check(all(r == [per_step, per_step] for r in rows),
+              f"{name}: launches per step {rows}, expected {per_step} + "
+              f"{per_step}")
+    check(worst <= DDP_STATE_REL, f"gloo world 2 narrow fp32 state: "
+          f"{worst_name} {worst} > {DDP_STATE_REL}")
+    check(all(np.isfinite(two["losses"])), f"gloo losses {two['losses']}")
+    def total(rows):
+        return [sum(r[0] for r in rows), sum(r[1] for r in rows)]
+
+    return {"nccl_world1": total(one["launches_per_step"]),
+            "no_group": total(one["launches_per_step_no_group"]),
+            "gloo_world2_rank0": total(two["launches_per_step"])}
+
+
+def export_worker(path, tmp):
+    """The fresh process of phase_export: load the artifact (no model
+    code) and serve it as the eval tool does (`Evaluator.from_exported`,
+    which moves the program to the process's card), run it at B=1 and
+    B=BATCH on the saved inputs counting the forward kernel's launches per
+    call, save the logits, time a bs8 forward. Prints one JSON line."""
+    import torch
+
+    from dformer_torch.configs import load_config
+    from dformer_torch.eval.evaluate import Evaluator
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+    from dformer_torch.runtime.export import load_exported
+
+    t0 = time.perf_counter()
+    cfg = load_config("local_configs.NYUDepthv2.DFormer_Large")
+    module = Evaluator.from_exported(load_exported(path), cfg,
+                                     device="cuda")._forward
+    load_s = time.perf_counter() - t0
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"))
+    rgb, depth = inputs["rgb"].cuda(), inputs["depth"].cuda()
+    launches = {}
+    with torch.inference_mode():
+        for b in (1, BATCH):
+            fused_mlp.launches = 0
+            logits = module(rgb[:b], depth[:b])
+            torch.cuda.synchronize()
+            launches[b] = fused_mlp.launches
+            torch.save(logits.cpu(), os.path.join(tmp, f"logits_{b}.pt"))
+        ms = time_ms(lambda: module(rgb, depth), reps=10, warmup=3, calls=1)
+    print(json.dumps({"load_s": load_s, "launches_per_call": launches,
+                      "ms_per_forward": ms}), flush=True)
+
+
+def phase_export(smi):
+    """The serving artifact: DFormer-Large + ham (bf16, 480x640, weights
+    from seed 0) exported with a symbolic batch into a temporary directory,
+    loaded in a fresh process that runs it at B=1 and B=8: its labels equal
+    entry.infer's on the same inputs, its logits within EXPORT_LOGITS_REL
+    of the eager model's, and 39 forward-kernel launches per call (the
+    kernel op, not the plain version, is in the program). Returns
+    {B: launches per call}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dformer_torch import entry
+    from dformer_torch.runtime.export import export_forward, save_exported
+
+    per_forward = sum(n for *_, n in mlp_shapes())
+    model = entry.build("DFormer-Large", HW, NUM_CLASSES, torch.bfloat16,
+                        "cuda", seed=0)
+    rng = np.random.RandomState(7)
+    rgb, depth = (torch.from_numpy(rng.rand(BATCH, *HW, 3).astype(
+        np.float32)).cuda() for _ in range(2))
+    tmp = tempfile.mkdtemp(prefix="dformer_export_")
+    try:
+        path = os.path.join(tmp, "dformer_large_ham.pt2")
+        t0 = time.perf_counter()
+        program = export_forward(model, HW)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        save_exported(program, path)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        torch.save({"rgb": rgb.cpu(), "depth": depth.cpu()},
+                   os.path.join(tmp, "inputs.pt"))
+        want, labels = {}, {}
+        module = program.module()
+        with torch.inference_mode():
+            for b in (1, BATCH):
+                want[b] = model(rgb[:b], depth[:b]).cpu()
+                labels[b] = entry.infer(model, rgb[:b], depth[:b]).cpu()
+            # eager and the program in this process, in turns
+            turns = [(name, time_ms(lambda: fn(rgb, depth), reps=10,
+                                    warmup=3, calls=1))
+                     for name, fn in (("eager", model), ("exported", module),
+                                      ("exported", module),
+                                      ("eager", model))]
+        del model, module, program
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        child = run_workers(f"import chip_smoke as c; c.export_worker("
+                            f"{path!r}, {tmp!r})", 1)
+        child_s = time.perf_counter() - t0
+        got = {b: torch.load(os.path.join(tmp, f"logits_{b}.pt"))
+               for b in (1, BATCH)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = {}
+    for b in (1, BATCH):
+        check(tuple(got[b].shape) == (b, *HW, NUM_CLASSES),
+              f"exported logits at B={b}: {tuple(got[b].shape)}")
+        rel = ((got[b].float() - want[b].float()).abs().max()
+               / want[b].float().abs().max()).item()
+        same = torch.equal(got[b].argmax(-1).to(torch.int32), labels[b])
+        rows[b] = {"logits_rel": rel, "bit_equal": torch.equal(got[b],
+                                                                want[b]),
+                   "labels_equal": same,
+                   "launches": child["launches_per_call"][str(b)]}
+    emit({"phase": "export", "model": "DFormer-Large+LightHamHead",
+          "hw": list(HW), "dtype": "bfloat16", "batch": "symbolic 1..64",
+          "artifact_bytes": nbytes, "export_s": export_s, "save_s": save_s,
+          "load_s": child["load_s"], "child_process_s": child_s,
+          "ms_per_forward_bs8": child["ms_per_forward"],
+          "ms_per_forward_bs8_in_turns": turns, "by_batch": rows,
+          "limit_logits_rel": EXPORT_LOGITS_REL, "card": smi})
+    for b, row in rows.items():
+        check(row["labels_equal"], f"exported labels at B={b} differ from "
+              "entry.infer's")
+        check(row["logits_rel"] <= EXPORT_LOGITS_REL,
+              f"exported logits at B={b}: rel {row['logits_rel']}")
+        check(row["launches"] == per_forward, f"B={b}: {row['launches']} "
+              f"forward-kernel launches per call, expected {per_forward}")
+    return {b: row["launches"] for b, row in rows.items()}
+
+
+
 def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                    fit_launches, trav_rows, trav_launches, fss_launches,
                    decoder_launches, decoders_fit_launches, convergence_launches,
-                   tool_launches):
+                   tool_launches, ddp_launches, export_launches):
     """One entry per kernel: times per forward or per train step (each
     shape's time times its launches, summed over the main-path shapes).
     `launches` are those of the serving path's run for the forward kernel
@@ -2235,8 +2658,11 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
     same sums over the 8 shapes of an FSS step's encoder pass (B 12). The
     `*_decoders*` keys are the launches of the decoder phases: per forward
     and per step for each head, and in the UPernet train tool's run;
-    `launches_in_convergence` and `launches_in_tools` those of the last two
-    phases."""
+    `launches_in_convergence` and `launches_in_tools` those of the
+    convergence and tools phases; `launches_in_ddp` the counted steps of
+    each run of the ddp phase (rank 0's for world 2) and
+    `launches_per_call_in_export` the exported program's per call, by
+    batch."""
     from dformer_torch.kernels.fused_mlp import (REPLACES, REPLACES_BWD,
                                                  SOURCE, SOURCE_BWD)
 
@@ -2289,6 +2715,9 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                       k: v[0] for k, v in convergence_launches.items()},
                   "launches_in_tools": {k: v[0]
                                         for k, v in tool_launches.items()},
+                  "launches_in_ddp": {k: v[0]
+                                      for k, v in ddp_launches.items()},
+                  "launches_per_call_in_export": export_launches,
                   "products_library_ms": total(rows, "launches_per_forward",
                                                "products_library_ms"),
                   **trav(trav_rows[0], "launches_per_forward",
@@ -2307,6 +2736,8 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                       k: v[1] for k, v in convergence_launches.items()},
                   "launches_in_tools": {k: v[1]
                                         for k, v in tool_launches.items()},
+                  "launches_in_ddp": {k: v[1]
+                                      for k, v in ddp_launches.items()},
                   "stage_ms": stages,
                   "wgrad_library_ms": total(rows_bwd, per,
                                             "wgrad_library_ms"),
@@ -2341,10 +2772,13 @@ def main():
     decoders_fit_launches = phase_decoders_fit(smi)
     convergence_launches = phase_convergence(smi)
     tool_launches = phase_tools(smi)
+    ddp_launches = phase_ddp(smi)
+    export_launches = phase_export(smi)
     emit(kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                         fit_launches, trav_rows, trav_launches, fss_launches,
                         decoder_launches, decoders_fit_launches,
-                        convergence_launches, tool_launches))
+                        convergence_launches, tool_launches, ddp_launches,
+                        export_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from dformer_torch.parallel import dist
+
 
 def normalize_batch(rgb: torch.Tensor, modal_x: torch.Tensor,
                     rgb_mean: torch.Tensor, rgb_std: torch.Tensor,
@@ -161,12 +163,11 @@ def train_augment_draws(batch: int, n_scales: int,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(flips [B] bool with p 0.5, scale_idx [B] int64 in [0, n_scales),
     u [B, 2] fp32 in [0, 1) for the crop origin), on the generator's
-    device."""
-    dev = generator.device
-    flips = torch.rand(batch, generator=generator, device=dev) < 0.5
-    scale_idx = torch.randint(0, n_scales, (batch,), generator=generator,
-                              device=dev)
-    u = torch.rand(batch, 2, generator=generator, device=dev)
+    device. Under a process group each is drawn for the global batch, of
+    which the rank keeps its `batch` rows."""
+    flips = dist.rand_rows((batch,), generator) < 0.5
+    scale_idx = dist.randint_rows(n_scales, (batch,), generator)
+    u = dist.rand_rows((batch, 2), generator)
     return flips, scale_idx, u
 
 

@@ -24,6 +24,7 @@ from dformer_torch.data.loader import device_val_batches
 from dformer_torch.eval.evaluate import Evaluator
 from dformer_torch.kernels.fused_mlp import fused_mlp
 from dformer_torch.models.builder import EncoderDecoder, build_model
+from dformer_torch.runtime.export import load_exported
 from dformer_torch.train.fss import fss_train_step, fss_trainable_mask
 from dformer_torch.train.loop import train_step
 from dformer_torch.train.optim import (make_optimizer, make_schedule,
@@ -153,7 +154,8 @@ def train_steps(model: EncoderDecoder, optimizer: torch.optim.Optimizer,
 def build_evaluator(cfg: AttrDict, dtype: Optional[torch.dtype] = None,
                     device="cuda", seed: int = 0, sliding: bool = False,
                     checkpoint: Optional[str] = None, val_batch_size: int = 4,
-                    synthetic: bool = False, n: Optional[int] = None
+                    synthetic: bool = False, n: Optional[int] = None,
+                    shard=(0, 1), exported: Optional[str] = None
                     ) -> Tuple[Evaluator, Iterator[dict]]:
     """(Evaluator, val batches on `device`) for a loaded config
     (`dformer_torch.configs.load_config`).
@@ -162,9 +164,16 @@ def build_evaluator(cfg: AttrDict, dtype: Optional[torch.dtype] = None,
     classes, image size and BatchNorm eps, computing in `dtype` (None =
     fp32), with the weights
     of a torch `checkpoint` file when one is given and `build`'s draw from
-    `seed` otherwise. The batches are `data.loader.device_val_batches`: the
-    config's val split (or `n` synthetic images) in batches of
-    `val_batch_size`, normalised on the device."""
+    `seed` otherwise; or, with `exported`, the program of that
+    `tools.export` file (`Evaluator.from_exported`). The batches are
+    `data.loader.device_val_batches`: the config's val split (or `n`
+    synthetic images) in batches of `val_batch_size`, normalised on the
+    device, of which this process takes its `shard` (rank, world)."""
+    batches = device_val_batches(cfg, val_batch_size, device, shard=shard,
+                                 synthetic=synthetic, n=n)
+    if exported is not None:
+        return Evaluator.from_exported(load_exported(exported), cfg,
+                                       device), batches
     model = build(cfg.backbone, (cfg.image_height, cfg.image_width),
                   cfg.num_classes, dtype, device, seed,
                   drop_path_rate=cfg.drop_path_rate, bn_eps=cfg.bn_eps,
@@ -172,8 +181,6 @@ def build_evaluator(cfg: AttrDict, dtype: Optional[torch.dtype] = None,
                   aux_rate=cfg.aux_rate)
     if checkpoint is not None:
         load_checkpoint(model, checkpoint)
-    batches = device_val_batches(cfg, val_batch_size, device,
-                                 synthetic=synthetic, n=n)
     return Evaluator(model, cfg, sliding=sliding, device=device), batches
 
 

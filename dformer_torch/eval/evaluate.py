@@ -16,6 +16,11 @@ inference with confusion-matrix metrics (counterpart of
 Inputs are NHWC batches (dicts of "rgb", "modal_x", "gt", optionally "hw"
 and "fn") of numpy arrays or tensors; they are moved to `device` per group.
 Everything runs under `torch.inference_mode()`.
+
+Across devices: one process drives one device, so there is no mesh inside
+a process (the JAX Evaluator's `mesh`). Under a process group each rank
+evaluates its shard of the val split (`device_val_batches(shard=...)`) and
+`Metrics.merge_across_processes` sums the hists.
 """
 
 from typing import Callable, Optional, Sequence
@@ -59,12 +64,7 @@ class Evaluator:
     `device`, the card unless the caller passes device="cpu"."""
 
     def __init__(self, model, cfg, sliding: bool = False,
-                 forward: Optional[Callable] = None, device="cuda",
-                 mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh evaluation is not ported yet (ROADMAP.md Queue 1, "
-                "item 12b: evaluation across devices and from artifacts)")
+                 forward: Optional[Callable] = None, device="cuda"):
         if torch.device(device).type == "cuda" \
                 and not torch.cuda.is_available():
             raise RuntimeError("Evaluator: CUDA is not available; pass "
@@ -76,13 +76,37 @@ class Evaluator:
         self.background = cfg.background
         self.device = torch.device(device)
         self._forward_override = forward
+        self.exported = False
 
     @classmethod
-    def from_exported(cls, exported, cfg, mesh=None):
-        raise NotImplementedError(
-            "serving an exported artifact is not ported yet (ROADMAP.md "
-            "Queue 1, item 12b: evaluation across devices and from "
-            "artifacts)")
+    def from_exported(cls, exported, cfg, device="cuda"):
+        """Serve an artifact of `runtime/export.py` (a `torch.export`
+        program, `load_exported`): its call replaces the model's forward,
+        on fp32 inputs. The artifact holds one input H x W, so only
+        single-scale `evaluate` runs: MSF and sliding windows need other
+        shapes and raise. The program is moved, in place, to `device`
+        (its weights, constants and the devices written into its graph):
+        an artifact saved from one card serves on any other, as every
+        rank of a torchrun evaluation does on its own."""
+        from torch.export.passes import move_to_device_pass
+
+        ev = cls(None, cfg, sliding=False, device=device)
+        if ev.device.type == "cuda" and ev.device.index is None:
+            ev.device = torch.device("cuda", torch.cuda.current_device())
+        module = move_to_device_pass(exported, ev.device).module()
+
+        def forward(rgb, modal):
+            return module(rgb.float(), modal.float())
+
+        ev._forward_override = forward
+        ev.exported = True
+        return ev
+
+    def _single_scale_only(self, mode):
+        if self.exported:
+            raise ValueError(f"{mode} evaluation needs input shapes other "
+                             "than the exported artifact's one H x W; "
+                             "evaluate it at single scale")
 
     def _to_device(self, arr) -> torch.Tensor:
         return torch.as_tensor(arr).to(self.device)
@@ -96,6 +120,7 @@ class Evaluator:
         """Whole-image or sliding-window logits at input resolution."""
         if not self.sliding:
             return self._forward(rgb, modal)
+        self._single_scale_only("sliding-window")
         return self._slide(rgb, modal)
 
     def _slide(self, rgb, modal):
@@ -147,6 +172,7 @@ class Evaluator:
         """The MSF accumulator: fp32 probabilities [B, *hw, C] summed over
         the scales (and their flipped passes); each pixel sums to
         len(scales) * (2 if flip else 1)."""
+        self._single_scale_only("multi-scale")
         H, W = hw
         acc = torch.zeros((rgb.shape[0], H, W, self.num_classes),
                           dtype=torch.float32, device=rgb.device)

@@ -10,10 +10,13 @@ The plain versions and the fp32 kernels take the exact-erf GELU; the bf16
 forward kernel takes the TPU kernel's clamped polynomial erf (within 7.7e-4
 of it, under bf16 rounding).
 
-`fused_mlp` is `FusedMLP.apply`, a `torch.autograd.Function`. For a CUDA
-tensor (bf16 or fp32) its forward launches `csrc/fused_mlp_fwd.cu` and its
-backward `csrc/fused_mlp_bwd.cu`, and either raises if it cannot; for a CPU
-tensor they run `fused_mlp_reference` and `fused_mlp_backward_reference`.
+`fused_mlp` calls the custom op `dformer_torch::fused_mlp`, whose autograd
+formula is the custom op `dformer_torch::fused_mlp_backward` (torch.library,
+each with a fake implementation, so that `torch.export` captures a call as
+one node). For a CUDA tensor (bf16 or fp32) the forward op launches
+`csrc/fused_mlp_fwd.cu` and the backward op `csrc/fused_mlp_bwd.cu`, and
+either raises if it cannot; for a CPU tensor they run `fused_mlp_reference`
+and `fused_mlp_backward_reference`.
 The kernels replace the TPU kernels `_kernel` and `_bwd_kernel` of
 `dformer_tpu/kernels/fused_mlp.py`; the source notes say what bounds them on
 the card and how they are laid out. Only x and the eight parameters are
@@ -41,7 +44,7 @@ so all nine gradients are bit-for-bit reproducible from run to run.
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -511,57 +514,88 @@ def fused_mlp_backward(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w,
                        fc2_b, g, eps: float = 1e-6):
     """Backward of the fused MLP block: the cotangent g [B,H,W,C] (x's dtype,
     contiguous) -> the gradients of the nine tensor arguments, in their
-    shapes and dtypes. On a CUDA tensor: the hand-written kernel, counted in
+    shapes and dtypes, through the op `dformer_torch::fused_mlp_backward`.
+    On a CUDA tensor: the hand-written kernel, counted in
     `fused_mlp.backward_launches`, or an exception. On a CPU tensor: the
     plain version."""
-    if x.device.type == "cpu":
-        return fused_mlp_backward_reference(x, ln_w, ln_b, fc1_w, fc1_b,
-                                            pos_w, pos_b, fc2_w, fc2_b, g,
-                                            eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp: unsupported device {x.device}")
-    return _backward_cuda(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w,
-                          fc2_b, g, eps)
+    return _fused_mlp_backward_op(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b,
+                                  fc2_w, fc2_b, g, float(eps))
 
 
-class FusedMLP(torch.autograd.Function):
-    """The fused MLP block with its hand-written backward. On a CUDA tensor
-    both directions launch their kernel (counted in `fused_mlp.launches` and
-    `fused_mlp.backward_launches`) or raise; on a CPU tensor they run the
-    plain versions."""
+# The two directions as torch.library custom ops, so that torch.export (and
+# any other tracer) sees one node per call: each has a fake implementation
+# that gives the output's metadata without touching storage, a CUDA
+# implementation that launches the kernel (or raises) and a CPU one that
+# runs the plain version. Any other device raises. (custom_op reads the
+# schema from the annotations.)
+T = torch.Tensor
 
-    @staticmethod
-    def forward(ctx, x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
-                eps=1e-6):
-        ctx.eps = eps
-        ctx.save_for_backward(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b,
-                              fc2_w, fc2_b)
-        if x.device.type == "cpu":
-            return fused_mlp_reference(x, ln_w, ln_b, fc1_w, fc1_b, pos_w,
-                                       pos_b, fc2_w, fc2_b, eps)
-        if x.device.type != "cuda":
-            raise ValueError(f"fused_mlp: unsupported device {x.device}")
-        return _forward_cuda(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b,
-                             fc2_w, fc2_b, eps)
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        return (*fused_mlp_backward(*ctx.saved_tensors, g.contiguous(),
+@torch.library.custom_op("dformer_torch::fused_mlp", mutates_args=())
+def _fused_mlp_op(x: T, ln_w: T, ln_b: T, fc1_w: T, fc1_b: T, pos_w: T,
+                  pos_b: T, fc2_w: T, fc2_b: T, eps: float) -> T:
+    raise ValueError(f"fused_mlp: unsupported device {x.device}")
+
+
+@torch.library.custom_op("dformer_torch::fused_mlp_backward", mutates_args=())
+def _fused_mlp_backward_op(x: T, ln_w: T, ln_b: T, fc1_w: T, fc1_b: T,
+                           pos_w: T, pos_b: T, fc2_w: T, fc2_b: T, g: T,
+                           eps: float) -> Tuple[T, T, T, T, T, T, T, T, T]:
+    raise ValueError(f"fused_mlp: unsupported device {x.device}")
+
+
+_fused_mlp_op.register_kernel("cpu")(fused_mlp_reference)
+_fused_mlp_op.register_kernel("cuda")(_forward_cuda)
+_fused_mlp_backward_op.register_kernel("cpu")(fused_mlp_backward_reference)
+_fused_mlp_backward_op.register_kernel("cuda")(_backward_cuda)
+
+
+@_fused_mlp_op.register_fake
+def _fused_mlp_fake(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
+                    eps):
+    return x.new_empty(x.shape)
+
+
+@_fused_mlp_backward_op.register_fake
+def _fused_mlp_backward_fake(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b,
+                             fc2_w, fc2_b, g, eps):
+    C, Ch = fc1_w.shape
+    # the CUDA kernel writes dfc1_w as [Ch, C] and returns its transpose
+    dfc1_w = (fc1_w.new_empty((Ch, C)).t() if x.device.type == "cuda"
+              else fc1_w.new_empty((C, Ch)))
+    return (x.new_empty(x.shape), ln_w.new_empty((C,)), ln_b.new_empty((C,)),
+            dfc1_w, fc1_b.new_empty((Ch,)), pos_w.new_empty((3, 3, Ch)),
+            pos_b.new_empty((Ch,)), fc2_w.new_empty((Ch, C)),
+            fc2_b.new_empty((C,)))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:9])
+    ctx.eps = inputs[9]
+
+
+def _fused_mlp_grads(ctx, g):
+    return (*_fused_mlp_backward_op(*ctx.saved_tensors, g.contiguous(),
                                     ctx.eps), None)
+
+
+_fused_mlp_op.register_autograd(_fused_mlp_grads,
+                                setup_context=_setup_context)
 
 
 def fused_mlp(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
               eps: float = 1e-6):
-    """Fused MLP block, differentiable in its nine tensor arguments.
+    """Fused MLP block, differentiable in its nine tensor arguments: the op
+    `dformer_torch::fused_mlp`, whose gradient is the op
+    `dformer_torch::fused_mlp_backward`.
 
     x [B,H,W,C] in bf16 or fp32; fc1_w [C,Ch], pos_w [3,3,Ch], fc2_w [Ch,C]
     in x's dtype; ln_w, ln_b, fc1_b, pos_b, fc2_b in fp32. fc1_w and fc2_w
     may be transposed views: the kernels read them in torch Linear layout
     ([Ch,C] and [C,Ch]), so the transposed view of a Linear weight is passed
     without a copy."""
-    return FusedMLP.apply(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w,
-                          fc2_b, eps)
+    return _fused_mlp_op(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w,
+                         fc2_b, float(eps))
 
 
 fused_mlp.launches = 0

@@ -20,6 +20,7 @@ from torch import nn
 
 from dformer_torch.models.nn import ConvBNReLU, Dropout, RoundedConv2d
 from dformer_torch.ops.resize import resize_bilinear
+from dformer_torch.parallel import dist
 
 
 def nmf2d(x, bases, train: bool = False, one_step_grad: bool = True):
@@ -58,31 +59,48 @@ def nmf2d(x, bases, train: bool = False, one_step_grad: bool = True):
 def uniform_bases(generator: torch.Generator, b: int, d: int, r: int,
                   device) -> torch.Tensor:
     """Fresh uniform NMF bases from `generator`, L2-normalised over the
-    channel dim, on `device`: what a training forward draws."""
-    bases = torch.rand((b, d, r), generator=generator,
-                       device=generator.device)
+    channel dim, on `device`: what a training forward draws. Under a
+    process group the draw is for the global batch, of which the rank
+    keeps its b rows."""
+    bases = dist.rand_rows((b, d, r), generator)
     bases = bases / torch.linalg.norm(bases, dim=1, keepdim=True)
     return bases.to(device)
 
 
+# rows of the seeded draw kept per (d, r, device): a batch up to this many
+# rows slices it, which is also how an exported forward with a symbolic
+# batch reads it (`runtime/export.py` bounds the batch by it)
+SEEDED_ROWS = 64
+
+
 @functools.lru_cache(maxsize=8)
-def seeded_bases(b: int, d: int, r: int, device: torch.device) -> torch.Tensor:
+def _seeded_draw(n: int, d: int, r: int,
+                 device: torch.device) -> torch.Tensor:
+    # a normal tensor even when first drawn under inference_mode, so that a
+    # later forward with autograd may save it for backward
+    with torch.inference_mode(False), torch.no_grad():
+        gen = torch.Generator().manual_seed(0)
+        bases = torch.rand((n, d, r), generator=gen)
+        bases = bases / torch.linalg.norm(bases, dim=1, keepdim=True)
+        return bases.to(device)
+
+
+def seeded_bases(b, d: int, r: int, device: torch.device) -> torch.Tensor:
     """Uniform NMF bases drawn from a torch.Generator seeded 0, L2-normalised
     over the channel dim: the port's deterministic bases. (The JAX package
     draws its own from jax.random.PRNGKey(0); the bits differ, so parity
     tests pass JAX's array in through `bases`.)
 
     Drawn on the CPU, so the bits are the same on every device, and cached
-    per (b, d, r, device): a forward on the card reuses the copy already
-    there instead of drawing and copying it mid-forward. Callers must not
-    modify the result in place."""
-    # a normal tensor even when first drawn under inference_mode, so that a
-    # later forward with autograd may save it for backward
-    with torch.inference_mode(False), torch.no_grad():
-        gen = torch.Generator().manual_seed(0)
-        bases = torch.rand((b, d, r), generator=gen)
-        bases = bases / torch.linalg.norm(bases, dim=1, keepdim=True)
-        return bases.to(device)
+    per device as one draw of max(b, SEEDED_ROWS) rows whose first b rows
+    are returned: the CPU generator fills a tensor in order, so these are
+    the bits of a draw of b rows. A forward on the card reuses the copy
+    already there instead of drawing and copying it mid-forward. `b` may be
+    a symbolic batch (torch.export) of at most SEEDED_ROWS; the draw must
+    then be in the cache already (`export_forward` runs the forward once
+    first). Callers must not modify the result in place."""
+    n = max(b, SEEDED_ROWS) if isinstance(b, int) else SEEDED_ROWS
+    return _seeded_draw(n, d, r, device)[:b]
 
 
 class Hamburger(nn.Module):

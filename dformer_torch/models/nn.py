@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dformer_torch.parallel import dist
+
 
 def gelu(x):
     return F.gelu(x)  # exact erf
@@ -125,7 +127,12 @@ class BatchNorm(nn.Module):
     Eval: the running statistics. Training: the batch mean and the two-pass
     biased batch variance (clamped at 0) normalise, and the running
     statistics move by `momentum` toward the batch mean and the *unbiased*
-    batch variance. Statistics across devices (SyncBN) are not ported."""
+    batch variance. Under a process group of more than one rank the batch
+    is the global one (SyncBN, the moments the JAX package takes over its
+    mesh): the mean is the all-summed channel sums over the global count,
+    the variance the all-summed squares around that mean over it, both
+    differentiable (`parallel.dist.all_sum`), and the count in the
+    unbiased variance is global."""
 
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -138,9 +145,15 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         xf = x.float()
         if self.training:
-            mean = xf.mean((0, 1, 2))
-            var = (xf - mean).square().mean((0, 1, 2)).clamp(min=0.0)
             n = x.shape[0] * x.shape[1] * x.shape[2]
+            if dist.world() > 1:
+                n = n * dist.world()  # every rank holds as many rows
+                mean = dist.all_sum(xf.sum((0, 1, 2))) / n
+                var = dist.all_sum((xf - mean).square().sum((0, 1, 2))) / n
+            else:
+                mean = xf.mean((0, 1, 2))
+                var = (xf - mean).square().mean((0, 1, 2))
+            var = var.clamp(min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(mean, alpha=m)
@@ -159,7 +172,9 @@ class GELU(nn.Module):
 
 class DropPath(nn.Module):
     """Per-sample stochastic depth. Identity in eval; in training the mask
-    is drawn from the `generator` the caller passes, never the global RNG."""
+    is drawn from the `generator` the caller passes, never the global RNG,
+    for the global batch of a process group, of which the rank keeps its
+    rows."""
 
     def __init__(self, drop_prob: float = 0.0):
         super().__init__()
@@ -172,14 +187,14 @@ class DropPath(nn.Module):
             raise ValueError("DropPath in training needs a torch.Generator")
         keep = 1.0 - self.drop_prob
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, generator=generator,
-                          device=generator.device) < keep
+        mask = dist.rand_rows(shape, generator) < keep
         return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
 
 
 class Dropout(nn.Module):
     """Element dropout. Identity in eval; in training the mask is drawn from
-    the `generator` the caller passes."""
+    the `generator` the caller passes, for the global batch of a process
+    group, of which the rank keeps its rows."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -191,8 +206,7 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("Dropout in training needs a torch.Generator")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator,
-                          device=generator.device) < keep
+        mask = dist.rand_rows(x.shape, generator) < keep
         return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
 
 

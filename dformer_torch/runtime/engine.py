@@ -1,33 +1,51 @@
-"""Run set-up (counterpart of `dformer_tpu/runtime/engine.py`): seeding,
-the timestamped run directories and the run's logger, on one process.
+"""Run set-up (counterpart of `dformer_tpu/runtime/engine.py`): the process
+group, seeding, the timestamped run directories and the run's logger.
 
-Distributed training (DDP over NCCL, SyncBatchNorm) is not ported yet: a
-launcher's WORLD_SIZE > 1 raises.
+Under `torchrun` (RANK in the environment) the process joins the group
+(`parallel.dist.group_from_env`: NCCL on the card, gloo on the CPU) for the
+engine's `with` block, and leaves a group it started at the block's end;
+rank 0 makes the run directories and every rank takes its names, so that
+all write into one run. Without it, one process and no group.
 """
 
+import contextlib
 import logging
 import os
 
 import numpy as np
 import torch
+import torch.distributed
 
 from dformer_torch.configs import finalize_run_dirs
+from dformer_torch.parallel import dist
 from dformer_torch.runtime.logger import get_logger
+
+RUN_DIR_KEYS = ("log_dir", "tb_dir", "checkpoint_dir", "log_file",
+                "val_log_file")
 
 
 class Engine:
-    def __init__(self, cfg):
-        world = int(os.environ.get("WORLD_SIZE", "1"))
-        if world > 1:
-            raise NotImplementedError(
-                f"WORLD_SIZE={world}: distributed training is not ported yet "
-                "(ROADMAP.md Queue 1, item 12: distributed training)")
+    def __init__(self, cfg, device="cuda"):
         self.cfg = cfg
-        finalize_run_dirs(cfg)
-        self.logger = get_logger(cfg.log_dir, cfg.log_file)
+        self._group = contextlib.ExitStack()
+        self.distributed = self._group.enter_context(
+            dist.group_from_env(device))
+        self.rank, self.world_size = dist.rank(), dist.world()
+        if self.rank == 0:
+            finalize_run_dirs(cfg)
+        if self.distributed:
+            names = [{k: cfg.get(k) for k in RUN_DIR_KEYS}]
+            torch.distributed.broadcast_object_list(names, src=0)
+            cfg.update(names[0])
+        self.logger = get_logger(cfg.log_dir, cfg.log_file, rank=self.rank)
         self.seed = int(cfg.get("seed", 8964))
         np.random.seed(self.seed)
         torch.manual_seed(self.seed)
+
+    def data_shard(self):
+        """(rank, world): this process's share of the train and val data
+        (the loaders' `shard`)."""
+        return self.rank, self.world_size
 
     def __enter__(self):
         return self
@@ -40,4 +58,16 @@ class Engine:
             if isinstance(h, logging.FileHandler):
                 self.logger.removeHandler(h)
                 h.close()
+        self._group.close()
         return False
+
+
+def single_process(tool: str) -> None:
+    """Raise when a launcher asks `tool` for more than one process: the
+    Trav tools are not data-parallel."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        raise NotImplementedError(
+            f"{tool}: WORLD_SIZE={world}, but the Trav tools run as one "
+            "process (ROADMAP.md Queue 1, item 12: the Trav k-fold tool and "
+            "Trav data-parallel training)")

@@ -1,10 +1,11 @@
-"""Train DFormer + the config's decode head from a config on one card
-(counterpart of `tools/train.py`):
+"""Train DFormer + the config's decode head from a config on one card, or
+data-parallel on several under torchrun (counterpart of `tools/train.py`):
 
     python -m dformer_torch.tools.train --config=local_configs.NYUDepthv2.DFormer_Large \\
         [--synthetic-data] [--epochs=N] [--continue_fpath=epoch-E_miou_M.pth] \\
         [--no-amp] [--val_amp] [--no-mst] [--sliding] [--val_batch_size=4] \\
         [--debug_nans] [--native-loader] [--device=cuda]
+    torchrun --nproc_per_node=N -m dformer_torch.tools.train --config=...
 
 Each epoch augments the train batches on the card and steps (bf16 compute
 on fp32 parameters unless --no-amp); epoch 1, every 10th and every epoch
@@ -15,6 +16,13 @@ cfg.checkpoint_dir. SIGTERM or SIGINT stops after the step in flight and
 saves the state as a rescue checkpoint to resume from with
 --continue_fpath. The encoder is loaded and frozen when
 cfg.pretrained_model exists, else everything trains from scratch.
+
+Under torchrun each of the N processes drives one card (NCCL; gloo with
+--device=cpu), loads batch_size // N rows of each global batch and steps
+as one process would on the global batch (`parallel/dist.py`: global
+BatchNorm statistics, loss and draws, summed gradients); each evaluates
+its share of the val split and the hists are summed; rank 0 logs and
+writes the checkpoints.
 
 The head is the config's `decoder` ("ham", "MLPDecoder", "UPernet",
 "deeplabv3+", "nl"; any other name builds the FCN-32s fallback), and the
@@ -48,7 +56,8 @@ def parse_args(argv=None):
     ap.add_argument("--sliding", action=argparse.BooleanOptionalAction,
                     default=False)
     ap.add_argument("--syncbn", action=argparse.BooleanOptionalAction,
-                    default=True, help="(one card: plain BatchNorm)")
+                    default=True, help="(always on under a process group: "
+                    "global BatchNorm statistics)")
     ap.add_argument("--compile", action=argparse.BooleanOptionalAction,
                     default=True, help="(eager PyTorch: no torch.compile)")
     ap.add_argument("--use_seed", action=argparse.BooleanOptionalAction,
@@ -67,8 +76,10 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _evaluate(trainer, cfg, args, log, epoch: int):
-    """mIoU of the trainer's model on the val split; logs the metrics."""
+def _evaluate(trainer, cfg, args, log, epoch: int, shard):
+    """mIoU of the trainer's model on the val split, of which this process
+    evaluates its `shard` (rank, world) and sums the hists with the other
+    ranks'; logs the metrics."""
     import torch
 
     from dformer_torch.data.loader import device_val_batches
@@ -79,6 +90,7 @@ def _evaluate(trainer, cfg, args, log, epoch: int):
     with compute_dtype(model, torch.bfloat16 if args.val_amp else None):
         ev = Evaluator(model, cfg, sliding=args.sliding, device=args.device)
         batches = device_val_batches(cfg, args.val_batch_size, args.device,
+                                     shard=shard,
                                      synthetic=args.synthetic_data)
         if args.mst:
             # the reference's --mst validation (utils/train.py:406-415)
@@ -111,11 +123,12 @@ def run(cfg, args, guard=None) -> dict:
 
     if args.epochs:
         cfg.nepochs = args.epochs
-    with Engine(cfg) as engine:
+    with Engine(cfg, args.device) as engine:
         log = engine.logger
-        log.info(f"device {args.device}; one process: plain BatchNorm "
-                 f"(--syncbn {args.syncbn}), eager PyTorch (--compile "
-                 f"{args.compile})")
+        log.info(f"device {args.device}; rank {engine.rank} of "
+                 f"{engine.world_size} (--syncbn {args.syncbn}: global "
+                 f"BatchNorm statistics under a process group), eager "
+                 f"PyTorch (--compile {args.compile})")
         model, optimizer, schedule, mask = entry.build_training(
             cfg, torch.bfloat16 if args.amp else None, args.device,
             engine.seed, logger=log)
@@ -126,7 +139,7 @@ def run(cfg, args, guard=None) -> dict:
 
             # both kernels at once, not one after the other at first use
             log.info(f"kernel builds (s): {build.build_all()}")
-        tb = TBWriter(cfg.tb_dir)
+        tb = TBWriter(cfg.tb_dir, rank=engine.rank)
         trainer = Trainer(model, optimizer, schedule, cfg, logger=log,
                           seed=engine.seed, tb=tb, trainable_mask=mask,
                           debug_nans=args.debug_nans)
@@ -134,7 +147,8 @@ def run(cfg, args, guard=None) -> dict:
         start_epoch = 1
         if args.continue_fpath:
             start_epoch = ckpt.restore(trainer, args.continue_fpath)
-        loader = train_batches(cfg, synthetic=args.synthetic_data,
+        loader = train_batches(cfg, shard=engine.data_shard(),
+                               synthetic=args.synthetic_data,
                                native=args.native_loader)
         own_guard = guard is None
         if own_guard:
@@ -163,7 +177,7 @@ def run(cfg, args, guard=None) -> dict:
                 if is_eval(epoch, cfg):
                     t0 = time.perf_counter()
                     miou, macc, mf1 = _evaluate(trainer, cfg, args, log,
-                                                epoch)
+                                                epoch, engine.data_shard())
                     out["eval_seconds"][epoch] = time.perf_counter() - t0
                     tb.scalar("val/mIoU", miou, epoch)
                     tb.scalar("val/mAcc", macc, epoch)

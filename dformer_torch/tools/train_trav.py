@@ -11,7 +11,8 @@ cfg.train_source; batch cfg.batch_size, mirrored at random, bf16 compute
 on fp32 parameters unless --no-amp), then writes an argmax mask for every
 row of --unlabeled_csv (default cfg.eval_source) and the manifest
 `unlabeled_masks.csv` into --save_dir (default cfg.save_dir). Manifests are
-read with the stdlib csv module (`data/trav.py`).
+read with the stdlib csv module (`data/trav.py`). One process: a
+launcher's WORLD_SIZE > 1 raises.
 """
 
 import argparse
@@ -55,7 +56,7 @@ def run(cfg, args, datasets=None) -> dict:
     from dformer_torch.config import AttrDict
     from dformer_torch.data.loader import Loader
     from dformer_torch.eval.pseudo_label import infer_unlabeled_masks
-    from dformer_torch.runtime.engine import Engine
+    from dformer_torch.runtime.engine import Engine, single_process
     from dformer_torch.train.fss import TravPrep
     from dformer_torch.train.loop import train_step
 
@@ -63,7 +64,8 @@ def run(cfg, args, datasets=None) -> dict:
         cfg.nepochs = args.epochs
     save_dir = args.save_dir or cfg.get("save_dir", "output/unlabeled_masks")
     device = torch.device(args.device)
-    with Engine(cfg) as engine:
+    single_process("tools.train_trav")
+    with Engine(cfg, args.device) as engine:
         log = engine.logger
         train_ds, unlabeled_ds = datasets or datasets_from_csv(cfg, args)
         train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,

@@ -15,7 +15,9 @@ images per class) and the contrastive prototype term is added. Each epoch
 is followed by cfg.eval_iterations evaluation episodes; a better episodic
 mIoU saves a checkpoint under cfg.checkpoint_dir. SIGTERM or SIGINT stops
 at the next epoch and saves a rescue checkpoint. The encoder is loaded
-from cfg.pretrained_model when it exists.
+from cfg.pretrained_model when it exists. With cfg.use_wandb each
+evaluation's metrics go to wandb (`runtime/wandb.py`) when it is
+installed. One process: a launcher's WORLD_SIZE > 1 raises.
 
 The support manifest (--s_csv, default cfg.train_source) keeps its
 labelled rows; the query manifest is --q_csv (default cfg.eval_source).
@@ -76,23 +78,20 @@ def run(cfg, args, datasets=None, guard=None) -> dict:
     {"trainer", "checkpoints", "best_miou", "miou", "losses",
     "contrastive", "epoch_seconds", "eval_seconds"}, the last five by
     epoch."""
-    if cfg.get("use_wandb"):
-        raise NotImplementedError(
-            "cfg.use_wandb: the wandb hook is not ported yet (ROADMAP.md "
-            "Queue 1, item 12: distributed training, export and the "
-            "remaining tools)")
     import torch
 
     from dformer_torch import entry
     from dformer_torch.data.loader import Loader
     from dformer_torch.data.trav import class_episodes_to_meta_batch
-    from dformer_torch.runtime.engine import Engine
+    from dformer_torch.runtime.engine import Engine, single_process
     from dformer_torch.runtime.preempt import PreemptionGuard
+    from dformer_torch.runtime.wandb import WandbHook
     from dformer_torch.train.checkpoint import CheckpointManager
     from dformer_torch.train.fss import FSSTrainer, fss_evaluate
 
     epochs = args.epochs or cfg.get("epochs", cfg.nepochs)
-    with Engine(cfg) as engine:
+    single_process("tools.train_trav_fss")
+    with Engine(cfg, args.device) as engine:
         log = engine.logger
         train_ds, val_ds = datasets or datasets_from_csv(cfg, args)
         batch = min(cfg.batch_size, len(train_ds)) if args.class_episodes \
@@ -113,6 +112,7 @@ def run(cfg, args, datasets=None, guard=None) -> dict:
         trainer = FSSTrainer(model, optimizer, schedule, cfg, mask,
                              seed=engine.seed, contrastive_weight=con_w)
         ckpt = CheckpointManager(cfg.checkpoint_dir, keep=5, logger=log)
+        wb = WandbHook(cfg, rank=engine.rank, logger=log)
         own_guard = guard is None
         if own_guard:
             guard = PreemptionGuard(logger=log).install()
@@ -151,12 +151,14 @@ def run(cfg, args, datasets=None, guard=None) -> dict:
                 out["eval_seconds"][epoch] = time.perf_counter() - t0
                 out["miou"][epoch] = miou
                 log.info(f"epoch {epoch} episodic mIoU {miou}")
+                wb.log_fss_eval(epoch, m)
                 if miou > out["best_miou"]:
                     out["best_miou"] = miou
                     ckpt.save(trainer, epoch, miou)
         finally:
             if own_guard:
                 guard.uninstall()
+            wb.finish()
         log.info(f"done; best episodic mIoU {out['best_miou']}")
     return out
 

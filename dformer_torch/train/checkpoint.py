@@ -7,6 +7,9 @@ the frozen parameter names}, with `epoch-{E}_miou_{M}.meta.json` beside it.
 The best `keep` by (mIoU, epoch) stay. The "model" entry is what
 `utils.checkpoint.load_torch_checkpoint` reads, so the eval tool loads the
 file as it is.
+
+Under a process group rank 0 writes and prunes, and every rank waits for it
+at a barrier; every rank restores from the same file.
 """
 
 import json
@@ -16,6 +19,8 @@ import re
 from typing import Optional, Tuple
 
 import torch
+
+from dformer_torch.parallel import dist
 
 _NAME_RE = re.compile(r"epoch-(\d+)_miou_([0-9.]+)\.pth$")
 
@@ -44,9 +49,17 @@ class CheckpointManager:
              extra: Optional[dict] = None) -> str:
         """Save the trainer's model, optimizer, step and frozen names as
         epoch `epoch` with val mIoU `miou`, then drop the worst files past
-        `keep`. Returns the file's path."""
+        `keep`. Returns the file's path. Under a process group only rank 0
+        writes, and every rank returns once the file is there."""
         stem = f"epoch-{epoch}_miou_{round(miou, 2)}"
         path = osp.abspath(osp.join(self.dir, stem + ".pth"))
+        if dist.rank() == 0:
+            self._write(trainer, path, stem, epoch, miou, extra)
+        if dist.active():
+            torch.distributed.barrier()
+        return path
+
+    def _write(self, trainer, path, stem, epoch, miou, extra):
         tmp = path + ".tmp"
         torch.save(dict(model=trainer.model.state_dict(),
                         optimizer=trainer.optimizer.state_dict(),
@@ -65,7 +78,6 @@ class CheckpointManager:
             if osp.exists(meta):
                 os.remove(meta)
             self._log(f"removed worst checkpoint {worst}")
-        return path
 
     def latest(self) -> Optional[Tuple[str, int]]:
         """(path, epoch) of the newest checkpoint by epoch, or None: a

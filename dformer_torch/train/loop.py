@@ -9,6 +9,12 @@ a stream that runs on: the augmentation of iteration `it` of epoch `e` from
 (seed, e * 100003 + it), the DropPath, dropout and NMF draws of step k from
 (seed, k). A run resumed from a checkpoint (which holds k) therefore takes
 the same steps as one that ran straight through.
+
+Data-parallel (one process per card under `torchrun`, `parallel/dist.py`):
+each rank steps on its rows of the global batch, with the draws of the
+global batch, and the gradients are summed over the ranks after the
+backward, so every rank takes the step a single process takes on the
+global batch.
 """
 
 import time
@@ -20,6 +26,7 @@ import torch
 from dformer_torch.data.augment import device_train_augment
 from dformer_torch.data.loader import val_x_stats
 from dformer_torch.ops.loss import softmax_cross_entropy_masked_mean
+from dformer_torch.parallel import dist
 from dformer_torch.train.audit import coverage_audit, param_paths
 from dformer_torch.train.optim import zero_missing_grads
 
@@ -82,7 +89,15 @@ def train_step(model, optimizer: torch.optim.Optimizer,
     groups before the update, so step 0 of a warm-up runs at rate 0.
     rgb [B,H,W,3] and modal_x [B,H,W,C] in fp32, gt [B,H,W] integer labels,
     all on the model's device. `generator` draws the DropPath and dropout
-    masks and the NMF bases; `bases` pins the NMF bases instead."""
+    masks and the NMF bases; `bases` pins the NMF bases instead.
+
+    Under a process group the inputs are this rank's rows of the global
+    batch; the loss is the global batch's (each rank's term is its share
+    of the global mean, `softmax_cross_entropy_masked_mean`), the gradients
+    of the optimizer's parameters are summed over the ranks before the
+    update (`parallel.dist.sync_grads`; a parameter in no group keeps its
+    rank's gradient) and the loss returned is the sum of the terms, the
+    same on every rank."""
     lr = schedule(step)
     for group in optimizer.param_groups:
         group["lr"] = lr
@@ -96,11 +111,18 @@ def train_step(model, optimizer: torch.optim.Optimizer,
         loss = loss + aux_rate * softmax_cross_entropy_masked_mean(
             aux, gt, ignore_index)
     loss.backward()
+    loss = loss.detach()
+    if dist.active():
+        # the parameters the optimizer updates: a frozen encoder's
+        # gradients are never read by an update, and stay this rank's own
+        dist.sync_grads(p for g in optimizer.param_groups
+                        for p in g["params"])
+        loss = dist.all_sum(loss)
     zero_missing_grads(optimizer)
     optimizer.step()
     if with_coverage_flags:
-        return loss.detach(), coverage_flags(model, optimizer)
-    return loss.detach()
+        return loss, coverage_flags(model, optimizer)
+    return loss
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -150,6 +172,7 @@ class Trainer:
         # step 0 runs at 0), so the audit runs until one has been checked
         self._audited = False
         self._audit_verbose = True
+        self._replicas_checked = False
         self._paths = param_paths(model)
         # (epoch, iterations done, host seconds) at each log line, where the
         # host has waited for the card: the s/it of the log
@@ -198,6 +221,11 @@ class Trainer:
                              with_coverage_flags=not self._audited,
                              aux_rate=self.cfg.get("aux_rate", 0.0))
             self.step += 1
+            if dist.world() > 1 and not self._replicas_checked:
+                # every rank starts from the seed and takes the summed
+                # gradients: their parameters must agree
+                dist.check_replicas_equal(list(self.model.parameters()))
+                self._replicas_checked = True
             if not self._audited:
                 loss, flags = out
                 report = coverage_audit(

@@ -338,9 +338,11 @@ def test_build_evaluator_runs_msf_on_synthetic_batches():
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--exported", "a.bin"], "item 12b"),
-    (["--save_path", "out"], "item 8b"),
-    (["--continue_fpath", "ckpt_dir"], "item 12c"),
+    # ids kept from the list's former first case, --exported (now served:
+    # tests/test_torch_export.py)
+    pytest.param(["--save_path", "out"], "item 8b", id="argv1-item 8b"),
+    pytest.param(["--continue_fpath", "ckpt_dir"], "item 12c",
+                 id="argv2-item 12c"),
 ])
 def test_eval_tool_names_what_is_not_ported(argv, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -9,6 +9,7 @@ the pseudo-labels, and both tools end to end over an on-disk fixture."""
 import copy
 import os
 import pickle
+import sys
 
 import numpy as np
 import pandas as pd
@@ -56,6 +57,7 @@ from dformer_tpu.train.fss import fss_trainable_mask as j_fss_mask
 from dformer_tpu.utils.convert import convert_model_state
 
 from test_torch_model import NARROW, _random_variables
+from test_torch_runtime import WandbStub
 from test_torch_train import _IdentityDropout
 from test_torch_trav import HW, _max_rel, trav_cfg, trav_variables
 
@@ -591,7 +593,9 @@ def test_fss_tool_main_trains_and_keeps_its_checkpoint(fixture_dir, tmp_path,
                                                        monkeypatch, mode):
     root = str(tmp_path)
     monkeypatch.setitem(t_configs.LEAVES, "local_configs.Trav.DFormer_Base",
-                        lambda: _cut(fixture_dir, root))
+                        lambda: _cut(fixture_dir, root, use_wandb=True))
+    wandb = WandbStub()
+    monkeypatch.setitem(sys.modules, "wandb", wandb)
     argv = ["--device=cpu", "--no-amp"]
     if mode == "class_episodes":
         argv += ["--class-episodes", "--contrastive-weight=0.1"]
@@ -607,6 +611,9 @@ def test_fss_tool_main_trains_and_keeps_its_checkpoint(fixture_dir, tmp_path,
                     else [])
     assert any(t for t in trainer.frozen) and \
         "encoder_backbone.stages.3.0.mlp.fc1.weight" in trainer.frozen
+    # cfg.use_wandb: the evaluation's metrics went to wandb
+    assert [p["epoch"] for p in wandb.logged] == [1] and wandb.finished
+    assert wandb.logged[0]["mIoU"] == out["miou"][1]
 
 
 def _cut(fixture_dir, root, **over):
@@ -616,9 +623,9 @@ def _cut(fixture_dir, root, **over):
     return cfg
 
 
-def test_fss_tool_refuses_wandb(fixture_dir, tmp_path):
+def test_fss_tool_refuses_data_parallel(fixture_dir, tmp_path, monkeypatch):
     cfg = _cut(fixture_dir, str(tmp_path))
-    cfg.use_wandb = True
+    monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="item 12"):
         t_fss_tool.run(cfg, t_fss_tool.parse_args(["--device=cpu"]))
 

@@ -1,8 +1,8 @@
 """The port's fused-MLP backward on the CPU: the plain backward against the
 JAX package's XLA backward (fp32) and its Pallas backward kernel (bf16,
-interpret mode), the `FusedMLP` autograd function against autograd through
-the plain forward, a port `MLPBlock`'s gradients against the JAX
-`MLPBlock`'s, and the CUDA backward's launch plan: its decomposition
+interpret mode), the `fused_mlp` op's registered autograd against
+autograd through the plain forward, a port `MLPBlock`'s gradients against
+the JAX `MLPBlock`'s, and the CUDA backward's launch plan: its decomposition
 replayed in plain PyTorch, and its coverage of every pixel and hidden
 channel. The CUDA kernel is held against the plain backward in
 tests/test_torch_cuda.py and chip_smoke.py."""
@@ -18,7 +18,7 @@ import jax
 import jax.numpy as jnp
 
 from dformer_torch.kernels import fused_mlp as tfm
-from dformer_torch.kernels.fused_mlp import (FusedMLP, backward_plan,
+from dformer_torch.kernels.fused_mlp import (backward_plan, fused_mlp,
                                              fused_mlp_backward_reference,
                                              fused_mlp_reference)
 from dformer_torch.models.encoder import VARIANTS
@@ -104,9 +104,9 @@ def test_backward_reference_matches_pallas_backward_bf16():
 
 
 def test_fused_mlp_function_gradients_match_autograd_of_plain_forward():
-    """`FusedMLP.apply` on the CPU, with the weights passed as the transposed
-    views `MLPBlock` passes: its hand-written backward equals autograd
-    through `fused_mlp_reference` for all nine tensor inputs."""
+    """`fused_mlp` (the custom op) on the CPU, with the weights passed as
+    the transposed views `MLPBlock` passes: its registered backward equals
+    autograd through `fused_mlp_reference` for all nine tensor inputs."""
     B, H, W, C, r = 2, 7, 9, 16, 4
     x, ps, g = _inputs(B, H, W, C, r, seed=2)
 
@@ -123,7 +123,7 @@ def test_fused_mlp_function_gradients_match_autograd_of_plain_forward():
         return (fn(*args) * torch.from_numpy(g)).sum()
 
     a_leaves, b_leaves = leaves(), leaves()
-    got = torch.autograd.grad(call(FusedMLP.apply, a_leaves), a_leaves)
+    got = torch.autograd.grad(call(fused_mlp, a_leaves), a_leaves)
     want = torch.autograd.grad(call(fused_mlp_reference, b_leaves), b_leaves)
     for name, a, b, leaf in zip(NAMES, got, want, a_leaves):
         assert a.shape == leaf.shape and a.dtype == leaf.dtype, name
@@ -131,7 +131,7 @@ def test_fused_mlp_function_gradients_match_autograd_of_plain_forward():
                                    err_msg=name)
     # no graph and no saved tensors under inference mode
     with torch.inference_mode():
-        out = FusedMLP.apply(*(t.detach() for t in a_leaves[:3]),
+        out = fused_mlp(*(t.detach() for t in a_leaves[:3]),
                              a_leaves[3].detach().t(),
                              *(t.detach() for t in a_leaves[4:7]),
                              a_leaves[7].detach().t(), a_leaves[8].detach())
@@ -139,7 +139,7 @@ def test_fused_mlp_function_gradients_match_autograd_of_plain_forward():
 
 
 def test_mlp_block_gradients_match_jax():
-    """A port MLPBlock (through FusedMLP) against the JAX MLPBlock
+    """A port MLPBlock (through the fused_mlp op) against the JAX MLPBlock
     (use_pallas=False) on the same numpy-drawn weights, fp32: output and
     the gradients of x and of every parameter."""
     B, H, W, C, r = 2, 7, 9, 16, 4

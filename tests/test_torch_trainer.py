@@ -354,15 +354,11 @@ def test_train_tool_rescue_checkpoint_resumes(narrow, tmp_path):
     assert out["trainer"].step == 3 and list(out["losses"]) == [2]
 
 
-def test_train_tool_refuses_what_is_not_ported(narrow, tmp_path,
-                                               monkeypatch):
+def test_train_tool_refuses_what_is_not_ported(narrow, tmp_path):
     cfg = _cfg(log_dir_base=str(tmp_path / "run"))
     # the native loader decodes files on disk: synthetic data has none
     with pytest.raises(ValueError, match="synthetic data has none"):
         t_train_tool.run(cfg, _tool_args("--native-loader"))
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_train_tool.run(cfg, _tool_args())
 
 
 # --- the Trainer against JAX's -------------------------------------------------
