@@ -113,9 +113,34 @@ Phases, each printing JSON lines:
                    logits within a limit of the eager model's, 39
                    forward-kernel launches per call; artifact bytes,
                    export / load seconds, ms per bs8 forward
+ 22. trav_ddp    - Trav data-parallel training on the one card, as in
+                   phase 20: world 1 over NCCL, 3 FSS steps (2 episodes of
+                   5 shots + 1 query) and 3 supervised steps (batch 2) of
+                   DFormerTrav-Base + ham (bf16) bit-equal to the same
+                   steps with no process group, 39 + 39 launches and one
+                   gradient all-reduce per step; world 2 over gloo: a
+                   narrow fp32 model's every leaf within a limit of world
+                   1's, the Base losses' differences; ms per step of each
+ 23. kfold       - tools.train_trav_kfold.run on the Trav config over 8
+                   in-memory rows: 2 folds of one epoch of 2 bs2 steps,
+                   each fold evaluated on its 4 rows; fold mIoUs finite,
+                   launches counted, seconds per fold
+ 24. infer       - tools.eval --save_path (single scale) and tools.infer
+                   (MSF + flip), bf16, on 4 synthetic NYUDepthv2 images of
+                   DFormer-Large + ham: every PNG's labels equal the
+                   Evaluator's, 39 forward-kernel launches per forward;
+                   tools.infer_trav on 4 in-memory Trav rows: the PNGs'
+                   labels equal entry.build_trav's argmax; ms per image
+ 25. rehearsal   - tools.sunrgbd_eval_rehearsal.run on the SUNRGBD
+                   DFormer-Small config at 24 images of the sensor mix,
+                   MSF + flip bf16, two passes: the hist exact, launches
+                   per forward, img/s of the second pass, pad overhead
 The native loader (dformer_torch/native/loader.cpp) has no phase: the card
 machine has no libjpeg / libpng headers to build it (PERF.md section 7);
-the CPU tests hold it against the Python loader and the JAX one.
+the CPU tests hold it against the Python loader and the JAX one. Nor have
+the orbax reader and the report drawing: the card machine has no
+tensorstore and no matplotlib; tests/test_torch_orbax.py and
+tests/test_torch_reports.py hold them on the CPU.
 Then the kernel summary line, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; nothing is caught. Exits non-zero
 before printing any result when CUDA is unavailable.
@@ -2147,6 +2172,11 @@ def check_positive(record, keys, who):
               f"{who}: {key} = {v!r}")
 
 
+# traced runs per head in the tools phase: fewer than the tool's defaults
+# (10 forwards, 3 steps), to keep the script within its time
+TRACE_REPS = {"forward": 5, "train": 2}
+
+
 def phase_tools(smi):
     """Each measurement tool of the port at its defaults (`run_tool`); the
     bench's labels against `entry.infer` of a model built apart from the
@@ -2216,7 +2246,8 @@ def phase_tools(smi):
         for mode in ("forward", "train"):
             torch.cuda.empty_cache()
             rec = counted(f"trace_{decoder}_{mode}",
-                          lambda: trace_forward.trace(mode, decoder))
+                          lambda: trace_forward.trace(
+                              mode, decoder, reps=TRACE_REPS[mode]))
             what = "step" if mode == "train" else "forward"
             rec = {k: v for k, v in rec.items() if k != "top"} | {
                 "top": rec["top"][:8]}
@@ -2238,7 +2269,7 @@ def phase_tools(smi):
 # rounding noise: tests/test_torch_dist.py); the exported artifact's logits
 # against the eager model's, as max |diff| / max |eager|
 DDP_STEPS = 3
-DDP_TIMED = 5
+DDP_TIMED = 3
 DDP_NARROW_HW = (64, 96)
 DDP_STATE_REL = 1e-5
 DDP_STATE_FLOOR = 0.1
@@ -2640,11 +2671,502 @@ def phase_export(smi):
     return {b: row["launches"] for b, row in rows.items()}
 
 
+# the Trav data-parallel phase: FSS and supervised steps counted, compared
+# bit for bit at NCCL world 1, then timed; the gloo world-2 narrow fp32
+# state against world 1's as in the ddp phase. The k-fold, prediction-saving
+# and rehearsal phases: their sizes.
+TRAV_DDP_STEPS = 3
+TRAV_DDP_TIMED = 3
+# the untrained DFormerTrav-Base of `_trav_ddp_steps`, by (hw, dtype, body)
+_TRAV_MODELS = {}
+KFOLD_ROWS = 8
+INFER_IMAGES = 4
+REHEARSAL_IMAGES = 24
+
+
+def _trav_ddp_steps(hw, dtype, narrow=False):
+    """TRAV_DDP_STEPS FSS steps (`FSSTrainer`, global batch of the Trav
+    config's 2 episodes of 5 shots + 1 query) then as many supervised
+    steps (`train.loop.train_step` through `TravPrep`, global batch 2) of
+    DFormerTrav-Base + ham from seed-made weights (`narrow`: the body cut
+    to the narrow widths), on this rank's rows of seeded global batches,
+    under deterministic algorithms; then TRAV_DDP_TIMED more of each,
+    timed by CUDA events. Returns {"fss" / "sup": {"losses", "state" (on
+    the card), "launches" per counted step, "ms_each_timed"},
+    "grad_syncs" of the counted steps}."""
+    import torch
+
+    from dformer_torch import entry
+    from dformer_torch.config import AttrDict
+    from dformer_torch.configs import load_config
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+    from dformer_torch.models.encoder import VARIANTS
+    from dformer_torch.parallel import dist
+    from dformer_torch.train.fss import (FSSTrainer, TravPrep,
+                                         fss_trainable_mask)
+    from dformer_torch.train.loop import train_step
+    from dformer_torch.train.optim import make_optimizer, make_schedule
+
+    base = VARIANTS["DFormer-Base"]
+    if narrow:
+        VARIANTS["DFormer-Base"] = {k: v for k, v in NARROW.items()}
+    try:
+        cfg = load_config(TRAV_CONFIG)
+        cfg.update(image_height=hw[0], image_width=hw[1])
+        B, n = cfg.batch_size, TRAV_DDP_STEPS + TRAV_DDP_TIMED
+
+        def mine(batches):  # this rank's rows of each global batch
+            return [{k: dist.rank_rows(v) for k, v in b.items()
+                     if isinstance(v, np.ndarray)} for b in batches]
+
+        episodes = mine(epoch_batches(MemoryEpisodes(B * n, hw, cfg.shots),
+                                      B))
+        rows = mine(epoch_batches(MemoryTrav(B * n, hw, seed=31), B))
+        # the FSS and the supervised recipe draw the same model from the
+        # seed (no pretrained file): drawn once per (size, body), copied
+        key = (hw, dtype, narrow)
+        if key not in _TRAV_MODELS:
+            _TRAV_MODELS[key] = entry.build_training(
+                AttrDict(cfg, pretrained_model=None), dtype, "cuda",
+                cfg.seed)[0]
+    finally:
+        VARIANTS["DFormer-Base"] = base
+    model = copy.deepcopy(_TRAV_MODELS[key])
+    mask = fss_trainable_mask(model)
+    fss = FSSTrainer(model, make_optimizer(cfg, model, mask),
+                     make_schedule(cfg), cfg, mask, seed=cfg.seed)
+    sup_model = copy.deepcopy(_TRAV_MODELS[key])
+    sup = (sup_model, make_optimizer(cfg, sup_model), make_schedule(cfg))
+    prep = TravPrep(cfg, cfg.seed, torch.device("cuda"))
+
+    def fss_step(k):
+        return fss.train_step(fss.prepare(episodes[k], 1, k))
+
+    def sup_step(k):
+        b = rows[k]
+        (flips,) = prep.mirror_draws(1, k, len(b["rgb"]))
+        rgb, laser, gt = prep(b["rgb"], b["laser"], b["gt"], flips)
+        return train_step(sup[0], sup[1], sup[2], k, rgb, gt, laser,
+                          prep.step_generator(k),
+                          ignore_index=cfg.background)
+
+    out, syncs = {}, dist.grad_syncs
+    for name, step, m in (("fss", fss_step, model), ("sup", sup_step,
+                                                     sup[0])):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        losses, launches = [], []
+        for k in range(TRAV_DDP_STEPS):
+            f0, b0 = fused_mlp.launches, fused_mlp.backward_launches
+            losses.append(float(step(k)))
+            launches.append([fused_mlp.launches - f0,
+                             fused_mlp.backward_launches - b0])
+        state = {n_: t.detach().clone() for n_, t in m.state_dict().items()}
+        torch.use_deterministic_algorithms(False)
+        times = []
+        for k in range(TRAV_DDP_STEPS, n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(k)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = dict(losses=losses, state=state, launches=launches,
+                         ms_each_timed=times)
+    out["grad_syncs"] = dist.grad_syncs - syncs
+    del model, fss, sup, sup_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def trav_ddp_worker(mode, out_dir):
+    """One rank of phase_trav_ddp. "nccl" (world 1): the Base bf16 steps
+    with no process group, the narrow fp32 steps (their states saved for
+    the gloo run), then the group from torchrun's environment and the Base
+    steps again, against the run without it. "gloo" (world 2 on the one
+    card): the narrow fp32 and the Base bf16 steps on each rank's half of
+    the global batches; rank 0 saves the narrow states. Prints one JSON
+    line."""
+    import torch
+    import torch.distributed
+
+    from dformer_torch.parallel import dist
+
+    base = (HW, torch.bfloat16)
+    narrow = (DDP_NARROW_HW, torch.float32, True)
+    out = {"mode": mode}
+    if mode == "nccl":
+        alone = _trav_ddp_steps(*base)
+        ref = _trav_ddp_steps(*narrow)
+        torch.save({k: {n: v.cpu() for n, v in ref[k]["state"].items()}
+                    for k in ("fss", "sup")},
+                   os.path.join(out_dir, "trav_narrow_world1.pt"))
+        out["narrow_world1_losses"] = {k: ref[k]["losses"]
+                                       for k in ("fss", "sup")}
+        check(dist.init_from_env("cuda"), "no process group from the "
+              "environment")
+        grouped = _trav_ddp_steps(*base)
+        for k in ("fss", "sup"):
+            unequal = [n for n, v in alone[k]["state"].items()
+                       if not torch.equal(v, grouped[k]["state"][n])]
+            out[k] = dict(
+                losses_no_group=alone[k]["losses"],
+                losses_group=grouped[k]["losses"],
+                launches_per_step=grouped[k]["launches"],
+                launches_per_step_no_group=alone[k]["launches"],
+                leaves=len(alone[k]["state"]), unequal_leaves=unequal[:10],
+                ms_each_timed_no_group=alone[k]["ms_each_timed"],
+                ms_each_timed_group=grouped[k]["ms_each_timed"])
+        out.update(world=dist.world(), grad_syncs=grouped["grad_syncs"],
+                   grad_syncs_no_group=alone["grad_syncs"])
+    else:
+        torch.cuda.set_device(0)
+        torch.distributed.init_process_group("gloo", init_method="env://")
+        mine = _trav_ddp_steps(*narrow)
+        if dist.rank() == 0:
+            torch.save({k: {n: v.cpu() for n, v in mine[k]["state"].items()}
+                        for k in ("fss", "sup")},
+                       os.path.join(out_dir, "trav_narrow_world2.pt"))
+        big = _trav_ddp_steps(*base)
+        out.update(world=dist.world(), grad_syncs=big["grad_syncs"],
+                   narrow_losses={k: mine[k]["losses"]
+                                  for k in ("fss", "sup")},
+                   **{k: dict(losses=big[k]["losses"],
+                              launches_per_step=big[k]["launches"],
+                              ms_each_timed=big[k]["ms_each_timed"])
+                      for k in ("fss", "sup")})
+    print(json.dumps(out), flush=True)
+    if dist.active():
+        torch.distributed.destroy_process_group()
+
+
+def phase_trav_ddp(smi):
+    """Trav data-parallel training on the one card. World 1 over NCCL:
+    TRAV_DDP_STEPS FSS steps and as many supervised steps of
+    DFormerTrav-Base + ham at the Trav config's widths and batch (bf16,
+    480x640) equal bit for bit the same steps with no process group, with
+    39 + 39 launches and one gradient all-reduce per step. World 2 over
+    gloo on the card (one episode and one row per rank): a narrow fp32
+    model's every leaf within DDP_STATE_REL of world 1's, the Base losses'
+    differences printed. ms per step of each. Returns {run: (forward,
+    backward) launches of the counted steps}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    per_step = sum(n for *_, n in mlp_shapes("DFormer-Base"))
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    tmp = tempfile.mkdtemp(prefix="dformer_trav_ddp_")
+    try:
+        t0 = time.perf_counter()
+        one = run_workers(f"import chip_smoke as c; c.trav_ddp_worker("
+                          f"'nccl', {tmp!r})", 1, env)
+        t1 = time.perf_counter()
+        two = run_workers(f"import chip_smoke as c; c.trav_ddp_worker("
+                          f"'gloo', {tmp!r})", 2, env)
+        t2 = time.perf_counter()
+        ref = torch.load(os.path.join(tmp, "trav_narrow_world1.pt"))
+        got = torch.load(os.path.join(tmp, "trav_narrow_world2.pt"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    worst = {}
+    for k in ("fss", "sup"):
+        worst[k] = (0.0, None)
+        for name, want in ref[k].items():
+            if not want.dtype.is_floating_point:
+                check(torch.equal(got[k][name], want),
+                      f"trav gloo narrow {k} {name}")
+                continue
+            scale = max(want.abs().max().item(), DDP_STATE_FLOOR)
+            err = (got[k][name] - want).abs().max().item() / scale
+            if err > worst[k][0]:
+                worst[k] = (err, name)
+    record = {"phase": "trav_ddp", "model": "DFormerTrav-Base+LightHamHead",
+              "config": TRAV_CONFIG, "hw": list(HW), "dtype": "bfloat16",
+              "fss_episodes": 2, "supervised_batch": 2,
+              "steps": TRAV_DDP_STEPS, "world": one["world"],
+              "grad_syncs": one["grad_syncs"],
+              "grad_syncs_no_group": one["grad_syncs_no_group"],
+              "gloo_grad_syncs": two["grad_syncs"],
+              "seconds_nccl": t1 - t0, "seconds_gloo": t2 - t1, "card": smi}
+    for k in ("fss", "sup"):
+        o, w = one[k], two[k]
+        record[k] = {
+            "nccl_world1": {x: o[x] for x in (
+                "losses_group", "losses_no_group", "leaves",
+                "unequal_leaves", "launches_per_step")},
+            "nccl_world1_ms_per_step": statistics.median(
+                o["ms_each_timed_group"]),
+            "no_group_ms_per_step": statistics.median(
+                o["ms_each_timed_no_group"]),
+            "nccl_world1_ms_each_timed": o["ms_each_timed_group"],
+            "no_group_ms_each_timed": o["ms_each_timed_no_group"],
+            "gloo_world2": {
+                "losses": w["losses"],
+                "loss_abs_diff_vs_world1": [
+                    abs(a - b) for a, b in zip(w["losses"],
+                                               o["losses_no_group"])],
+                "launches_per_step_per_rank": w["launches_per_step"],
+                "ms_per_step": statistics.median(w["ms_each_timed"]),
+                "ms_each_timed": w["ms_each_timed"]},
+            "gloo_narrow_fp32": {
+                "hw": list(DDP_NARROW_HW),
+                "losses_world2": two["narrow_losses"][k],
+                "losses_world1": one["narrow_world1_losses"][k],
+                "max_state_rel": worst[k][0],
+                "max_state_rel_leaf": worst[k][1],
+                "limit_state_rel": DDP_STATE_REL,
+                "state_floor": DDP_STATE_FLOOR}}
+    emit(record)
+    check(one["world"] == 1 and two["world"] == 2, "trav_ddp world sizes")
+    # one per step: counted and timed, FSS and supervised
+    want_syncs = 2 * (TRAV_DDP_STEPS + TRAV_DDP_TIMED)
+    check(one["grad_syncs"] == two["grad_syncs"] == want_syncs
+          and one["grad_syncs_no_group"] == 0,
+          f"trav_ddp gradient syncs: {one['grad_syncs']} (NCCL), "
+          f"{two['grad_syncs']} (gloo), {one['grad_syncs_no_group']} (no "
+          f"group); expected {want_syncs}")
+    launches = {}
+    for k in ("fss", "sup"):
+        o = one[k]
+        check(not o["unequal_leaves"], f"trav_ddp {k}: NCCL world 1 "
+              f"against no group: {o['unequal_leaves']} differ")
+        check(o["losses_group"] == o["losses_no_group"],
+              f"trav_ddp {k}: NCCL world 1 losses {o['losses_group']} "
+              f"against {o['losses_no_group']}")
+        for name, rows in (("nccl", o["launches_per_step"]),
+                           ("no group", o["launches_per_step_no_group"]),
+                           ("gloo", two[k]["launches_per_step"])):
+            check(all(r == [per_step, per_step] for r in rows),
+                  f"trav_ddp {k} {name}: launches per step {rows}, "
+                  f"expected {per_step} + {per_step}")
+        check(worst[k][0] <= DDP_STATE_REL, f"trav_ddp {k}: gloo world 2 "
+              f"narrow fp32 state {worst[k][1]} {worst[k][0]} > "
+              f"{DDP_STATE_REL}")
+        check(all(np.isfinite(two[k]["losses"])),
+              f"trav_ddp {k}: gloo losses {two[k]['losses']}")
+        for run, rows in (("nccl_world1", o["launches_per_step"]),
+                          ("gloo_world2_rank0",
+                           two[k]["launches_per_step"])):
+            launches[f"{k}_{run}"] = [sum(r[0] for r in rows),
+                                      sum(r[1] for r in rows)]
+    return launches
+
+
+def phase_kfold(smi):
+    """The Trav k-fold tool: `tools.train_trav_kfold.run` on the Trav
+    config (DFormerTrav-Base + ham, 480x640, bf16, batch 2) over
+    KFOLD_ROWS in-memory rows, 2 folds of one epoch (2 steps each), each
+    fold evaluated on its 4 rows. Returns the (forward, backward)
+    launches of the run."""
+    import tempfile
+
+    import torch
+
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+    from dformer_torch.tools import train_trav_kfold
+
+    per_pass = sum(n for *_, n in mlp_shapes("DFormer-Base"))
+    folds = 2
+    with tempfile.TemporaryDirectory() as root:
+        cfg = trav_cfg(root, "kfold")
+        hw, B = (cfg.image_height, cfg.image_width), cfg.batch_size
+        fused_mlp.launches = fused_mlp.backward_launches = 0
+        t0 = time.perf_counter()
+        out = train_trav_kfold.run(cfg, train_trav_kfold.parse_args(
+            [f"--folds={folds}", "--epochs=1"]),
+            rows=MemoryTrav(KFOLD_ROWS, hw, seed=24))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches = (fused_mlp.launches, fused_mlp.backward_launches)
+    val = KFOLD_ROWS // folds
+    steps = (KFOLD_ROWS - val) // B
+    emit({"phase": "kfold", "model": "DFormerTrav-Base+LightHamHead",
+          "config": TRAV_CONFIG, "rows": KFOLD_ROWS, "folds": folds,
+          "epochs": 1, "batch": B, "steps_per_fold": steps,
+          "val_images_per_fold": val, "hw": list(hw), "dtype": "bfloat16",
+          "fold_mious": out["fold_mious"], "mean_miou": out["mean_miou"],
+          "losses": out["losses"], "fold_seconds": out["fold_seconds"],
+          "s_per_fold": statistics.median(out["fold_seconds"].values()),
+          "run_s": run_s,
+          "launches": {"forward": launches[0], "backward": launches[1]},
+          "card": smi})
+    check(len(out["fold_mious"]) == folds
+          and all(np.isfinite(m) for m in out["fold_mious"]),
+          f"kfold: fold mIoUs {out['fold_mious']}")
+    check(all(np.isfinite(out["losses"][f][1]) for f in range(folds)),
+          f"kfold: losses {out['losses']}")
+    check(launches == (folds * (steps + val) * per_pass,
+                       folds * steps * per_pass),
+          f"kfold: {launches} forward and backward launches, expected "
+          f"{per_pass} per step and per forward")
+    return launches
+
+
+def phase_infer(smi):
+    """Prediction saving: `tools.eval --save_path` at single scale and
+    `tools.infer` (MSF + flip), bf16, on INFER_IMAGES synthetic NYUDepthv2
+    images of DFormer-Large + ham (seed-0 weights) in one group: every
+    PNG's labels equal the Evaluator's on the same model and images, the
+    hists too, 39 forward-kernel launches per forward; then
+    `tools.infer_trav` on INFER_IMAGES in-memory Trav rows: each PNG's
+    labels equal `entry.build_trav`'s argmax. Returns {run: forward
+    launches}."""
+    import tempfile
+
+    import torch
+
+    from dformer_torch import configs, entry
+    from dformer_torch.eval.visualize import (labels_from_png, palette_for,
+                                              pred_png_name)
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+    from dformer_torch.tools import eval as eval_tool
+    from dformer_torch.tools import infer, infer_trav
+    from dformer_torch.train.fss import TravPrep
+
+    leaf = "local_configs.NYUDepthv2.DFormer_Large"
+    cut = f"{leaf}:{INFER_IMAGES}"
+
+    def cut_cfg():
+        cfg = configs.load_config(leaf)
+        cfg.num_eval_imgs = INFER_IMAGES
+        return cfg
+
+    configs.LEAVES[cut] = cut_cfg
+    per_forward = sum(n for *_, n in mlp_shapes())
+    flags = [f"--config={cut}", "--synthetic-data", "--amp",
+             f"--val_batch_size={INFER_IMAGES}"]
+    runs, launches = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        for mode, tool, argv, forwards in (
+                ("single", eval_tool, ["--no-mst"], 1),
+                ("msf_flip", infer, [], 2 * len(eval_tool.MSF_SCALES))):
+            save = os.path.join(root, mode)
+            torch.cuda.synchronize()
+            fused_mlp.launches = 0
+            t0 = time.perf_counter()
+            m = tool.main(flags + argv + [f"--save_path={save}"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[mode] = fused_mlp.launches
+            # the Evaluator's labels on the same model and images
+            cfg = cut_cfg()
+            ev, batches = entry.build_evaluator(
+                cfg, torch.bfloat16, "cuda", synthetic=True,
+                val_batch_size=INFER_IMAGES)
+            seen = {}
+
+            def hook(preds, batch):
+                seen.update(zip(batch["fn"], preds))
+
+            t0 = time.perf_counter()
+            if mode == "single":
+                ref = ev.evaluate(batches, save_hook=hook)
+            else:
+                ref = ev.evaluate_msf(batches, eval_tool.MSF_SCALES,
+                                      flip=cfg.eval_flip, save_hook=hook)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            palette = palette_for(cfg)
+            differ = sum(int((labels_from_png(os.path.join(
+                save, pred_png_name(fn)), palette) != pred).sum())
+                for fn, pred in seen.items())
+            runs[mode] = {"seconds": seconds,
+                          "ms_per_image_with_saving": seconds * 1e3
+                          / INFER_IMAGES,
+                          "evaluator_ms_per_image": eval_s * 1e3
+                          / INFER_IMAGES,
+                          "pngs": len(seen), "pixels_differing": differ,
+                          "hist_equal": bool(np.array_equal(m.hist,
+                                                            ref.hist)),
+                          "fused_mlp_launches": launches[mode]}
+            check(len(seen) == INFER_IMAGES and differ == 0
+                  and runs[mode]["hist_equal"],
+                  f"infer {mode}: {runs[mode]}")
+            check(launches[mode] == forwards * per_forward,
+                  f"infer {mode}: {launches[mode]} launches, expected "
+                  f"{forwards * per_forward}")
+            del ev
+
+        # Trav predictions over in-memory rows
+        cfg = trav_cfg(root, "infer_trav")
+        hw = (cfg.image_height, cfg.image_width)
+        rows = MemoryTrav(INFER_IMAGES, hw, seed=25, labelled=False)
+        per_pass = sum(n for *_, n in mlp_shapes("DFormer-Base"))
+        fused_mlp.launches = 0
+        out = infer_trav.run(cfg, infer_trav.parse_args(
+            [f"--save_path={root}/trav"]), dataset=rows)
+        launches["infer_trav"] = fused_mlp.launches
+        model = entry.build_trav(cfg, torch.bfloat16, "cuda", 0)
+        prep = TravPrep(cfg, 0, torch.device("cuda"))
+        palette = palette_for(cfg)
+        differ = 0
+        with torch.inference_mode():
+            for path, i in zip(out["paths"], range(INFER_IMAGES)):
+                item = rows[i]
+                rgb, laser = prep(item["rgb"][None], item["laser"][None])
+                want = torch.argmax(model(rgb, laser), dim=-1)[0]
+                differ += int((labels_from_png(path, palette)
+                               != want.cpu().numpy()).sum())
+        runs["infer_trav"] = {"seconds": out["seconds"],
+                              "ms_per_image_with_saving": out["seconds"]
+                              * 1e3 / INFER_IMAGES,
+                              "pngs": len(out["paths"]),
+                              "pixels_differing": differ,
+                              "fused_mlp_launches": launches["infer_trav"]}
+        del model, out
+    del configs.LEAVES[cut]
+    emit({"phase": "infer", "model": "DFormer-Large+LightHamHead",
+          "trav_model": "DFormerTrav-Base+LightHamHead",
+          "images": INFER_IMAGES, "hw": list(HW), "dtype": "bfloat16",
+          "runs": runs, "card": smi})
+    check(runs["infer_trav"]["pngs"] == INFER_IMAGES and differ == 0,
+          f"infer_trav: {runs['infer_trav']}")
+    check(launches["infer_trav"] == INFER_IMAGES * per_pass,
+          f"infer_trav: {launches['infer_trav']} launches, expected "
+          f"{INFER_IMAGES * per_pass}")
+    return launches
+
+
+def phase_rehearsal(smi):
+    """`tools.sunrgbd_eval_rehearsal.run` on the SUNRGBD DFormer-Small
+    config (bf16, seed-0 weights) at REHEARSAL_IMAGES images of the sensor
+    mix in loader batches of 4, MSF + flip, two passes: the hist exact
+    (checked by the tool), the forward kernel at DFormer-Small's launches
+    per forward, the img/s of the second pass and the pad overhead.
+    Returns the forward launches."""
+    from dformer_torch.configs import load_config
+    from dformer_torch.kernels.fused_mlp import fused_mlp
+    from dformer_torch.tools import sunrgbd_eval_rehearsal as rehearsal
+
+    config = "local_configs.SUNRGBD.DFormer_Small"
+    args = rehearsal.parse_args([f"--config={config}",
+                                 f"--images={REHEARSAL_IMAGES}"])
+    per_forward = sum(n for *_, n in mlp_shapes("DFormer-Small"))
+    fused_mlp.launches = 0
+    t0 = time.perf_counter()
+    rec = rehearsal.run(load_config(config), args)
+    seconds = time.perf_counter() - t0
+    launches = fused_mlp.launches
+    forwards = 2 * sum(rec["groups"].values()) * 2 * len(args.scales)
+    emit({"phase": "rehearsal", **rec, "fused_mlp_launches": launches,
+          "forwards": forwards, "seconds": seconds, "card": smi})
+    check(rec["hist_exact"] and np.isfinite(rec["steady_img_per_s"]),
+          f"rehearsal: {rec}")
+    check(launches == forwards * per_forward,
+          f"rehearsal: {launches} launches in {forwards} forwards, expected "
+          f"{per_forward} per forward")
+    return launches
+
+
 
 def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                    fit_launches, trav_rows, trav_launches, fss_launches,
                    decoder_launches, decoders_fit_launches, convergence_launches,
-                   tool_launches, ddp_launches, export_launches):
+                   tool_launches, ddp_launches, export_launches,
+                   trav_ddp_launches, kfold_launches, infer_launches,
+                   rehearsal_launches):
     """One entry per kernel: times per forward or per train step (each
     shape's time times its launches, summed over the main-path shapes).
     `launches` are those of the serving path's run for the forward kernel
@@ -2662,7 +3184,11 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
     convergence and tools phases; `launches_in_ddp` the counted steps of
     each run of the ddp phase (rank 0's for world 2) and
     `launches_per_call_in_export` the exported program's per call, by
-    batch."""
+    batch; `launches_in_trav_ddp` the counted FSS and supervised steps of
+    each run of the trav_ddp phase (rank 0's for world 2),
+    `launches_in_kfold` the k-fold tool's run, `launches_in_infer` each
+    prediction-saving run and `launches_in_rehearsal` the rehearsal's two
+    passes."""
     from dformer_torch.kernels.fused_mlp import (REPLACES, REPLACES_BWD,
                                                  SOURCE, SOURCE_BWD)
 
@@ -2718,6 +3244,11 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                   "launches_in_ddp": {k: v[0]
                                       for k, v in ddp_launches.items()},
                   "launches_per_call_in_export": export_launches,
+                  "launches_in_trav_ddp": {
+                      k: v[0] for k, v in trav_ddp_launches.items()},
+                  "launches_in_kfold": kfold_launches[0],
+                  "launches_in_infer": infer_launches,
+                  "launches_in_rehearsal": rehearsal_launches,
                   "products_library_ms": total(rows, "launches_per_forward",
                                                "products_library_ms"),
                   **trav(trav_rows[0], "launches_per_forward",
@@ -2738,6 +3269,9 @@ def kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                                         for k, v in tool_launches.items()},
                   "launches_in_ddp": {k: v[1]
                                       for k, v in ddp_launches.items()},
+                  "launches_in_trav_ddp": {
+                      k: v[1] for k, v in trav_ddp_launches.items()},
+                  "launches_in_kfold": kfold_launches[1],
                   "stage_ms": stages,
                   "wgrad_library_ms": total(rows_bwd, per,
                                             "wgrad_library_ms"),
@@ -2774,11 +3308,16 @@ def main():
     tool_launches = phase_tools(smi)
     ddp_launches = phase_ddp(smi)
     export_launches = phase_export(smi)
+    trav_ddp_launches = phase_trav_ddp(smi)
+    kfold_launches = phase_kfold(smi)
+    infer_launches = phase_infer(smi)
+    rehearsal_launches = phase_rehearsal(smi)
     emit(kernel_summary(rows, rows_bwd, launches, train_launches, eval_rows,
                         fit_launches, trav_rows, trav_launches, fss_launches,
                         decoder_launches, decoders_fit_launches,
                         convergence_launches, tool_launches, ddp_launches,
-                        export_launches))
+                        export_launches, trav_ddp_launches, kfold_launches,
+                        infer_launches, rehearsal_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -19,10 +19,18 @@ tensors over the batch, and the whole batch is a handful of gathers with no
 host synchronisation. The random draws (`train_augment_draws`) are apart
 from the math (`apply_train_augment`), so the same draws can be fed to both
 this module and the JAX one.
+
+The standalone primitives at the end (pad, shortest-edge resize, centre
+crop, rotation, Gaussian blur) act on one image [H, W, C] or label map
+[H, W] with cv2's semantics; no recipe of the package calls them, they are
+there for pipelines that compose their own. The random ones take their
+draw from a `torch.Generator`.
 """
 
+import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from dformer_torch.parallel import dist
@@ -235,3 +243,136 @@ def device_train_augment(rgb, gt, modal_x, generator: torch.Generator,
     draws = train_augment_draws(rgb.shape[0], len(scales), generator)
     return apply_train_augment(rgb, gt, modal_x, *draws, out_hw, scales,
                                rgb_mean, rgb_std, x_mean, x_std, true_hw)
+
+
+# --- standalone primitives ---------------------------------------------------
+
+def pad_to_shape(img: torch.Tensor, shape: Tuple[int, int], pad_value):
+    """Centred constant pad of H and W to at least `shape`; returns (img,
+    margin [top, bottom, left, right] as uint32)."""
+    h, w = img.shape[:2]
+    ph, pw = max(shape[0] - h, 0), max(shape[1] - w, 0)
+    margin = (ph // 2, ph - ph // 2, pw // 2, pw - pw // 2)
+    out = img.new_full((h + ph, w + pw) + tuple(img.shape[2:]), pad_value)
+    out[margin[0]:margin[0] + h, margin[2]:margin[2] + w] = img
+    return out, np.asarray(margin, np.uint32)
+
+
+def pad_to_multiple(img: torch.Tensor, multiple: int, pad_value):
+    """Centred pad so that H and W are multiples of `multiple`."""
+    h, w = img.shape[:2]
+    return pad_to_shape(img, (-(-h // multiple) * multiple,
+                              -(-w // multiple) * multiple), pad_value)
+
+
+def resize_shortest_edge(img: torch.Tensor, edge_length: int
+                         ) -> torch.Tensor:
+    """fp32 bilinear resize (cv2 INTER_LINEAR geometry) so that the shorter
+    side is `edge_length`, the longer one scaled by the same ratio."""
+    from dformer_torch.ops.resize import resize_bilinear
+
+    h, w = img.shape[:2]
+    if h < w:
+        th, tw = edge_length, max(1, int(edge_length / h * w))
+    else:
+        th, tw = max(1, int(edge_length / w * h)), edge_length
+    x = img[..., None] if img.ndim == 2 else img
+    out = resize_bilinear(x.float()[None], (th, tw))[0]
+    return out[..., 0] if img.ndim == 2 else out
+
+
+def center_crop(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+    y = (img.shape[0] - shape[0]) // 2
+    x = (img.shape[1] - shape[1]) // 2
+    return img[y:y + shape[0], x:x + shape[1]]
+
+
+def rotate(img: torch.Tensor, angle_deg, nearest: bool = False,
+           pad_value: float = 0.0) -> torch.Tensor:
+    """fp32 rotation about the image centre (w / 2, h / 2) by `angle_deg`
+    (counter-clockwise on screen, a float or 0-d tensor), as cv2's
+    `warpAffine` with `getRotationMatrix2D(centre, angle, 1)`: bilinear, or
+    nearest (half away from zero) for labels; a source pixel outside the
+    image reads `pad_value`."""
+    x = (img[..., None] if img.ndim == 2 else img).float()
+    h, w = x.shape[:2]
+    th = -torch.as_tensor(angle_deg, dtype=torch.float32,
+                          device=x.device) * (math.pi / 180.0)
+    cos, sin = torch.cos(th), torch.sin(th)
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32,
+                                         device=x.device),
+                            torch.arange(w, dtype=torch.float32,
+                                         device=x.device), indexing="ij")
+    cx, cy = w / 2.0, h / 2.0
+    sx = cos * (xx - cx) + sin * (yy - cy) + cx
+    sy = -sin * (xx - cx) + cos * (yy - cy) + cy
+
+    def taps(coord):  # [(index, weight)] of one axis
+        if nearest:
+            r = torch.sign(coord) * torch.floor(coord.abs() + 0.5)
+            return [(r.long(), None)]
+        lower = torch.floor(coord)
+        upper_w = coord - lower
+        return [(lower.long(), 1.0 - upper_w), (lower.long() + 1, upper_w)]
+
+    out = None
+    for iy, wy in taps(sy):
+        for ix, wx in taps(sx):
+            inside = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+            v = x[iy.clamp(0, h - 1), ix.clamp(0, w - 1)]
+            v = torch.where(inside[..., None], v, pad_value)
+            if wy is not None:
+                v = (wy * wx)[..., None] * v
+            out = v if out is None else out + v
+    return out[..., 0] if img.ndim == 2 else out
+
+
+def random_rotation(generator: torch.Generator, img: torch.Tensor,
+                    gt: torch.Tensor):
+    """(img, gt) rotated by one angle ~ U(-10, 10) degrees: the image
+    bilinear, the labels nearest."""
+    angle = torch.rand((), generator=generator,
+                       device=generator.device) * 20.0 - 10.0
+    return rotate(img, angle), rotate(gt, angle, nearest=True)
+
+
+# cv2's fixed taps of `getGaussianKernel(k, sigma <= 0)` for k <= 7
+_CV2_GAUSS = {
+    1: (1.0,),
+    3: (0.25, 0.5, 0.25),
+    5: (0.0625, 0.25, 0.375, 0.25, 0.0625),
+    7: (0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125),
+}
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    """cv2.GaussianBlur(img, (k, k), 0) in fp32: its fixed taps, a
+    reflect-101 border, one pass down H then one along W (`img` itself for
+    k <= 1)."""
+    if ksize <= 1:
+        return img
+    taps = _CV2_GAUSS[ksize]
+    r = ksize // 2
+    x = (img[..., None] if img.ndim == 2 else img).float()
+
+    def pass_axis(a, axis):
+        n = a.shape[axis]
+        idx = torch.arange(-r, n + r, device=a.device).abs()
+        idx = (n - 1) - (n - 1 - idx).abs()  # reflect-101 at both ends
+        ap = a.index_select(axis, idx)
+        out = None
+        for i, t in enumerate(taps):
+            term = t * ap.narrow(axis, i, n)
+            out = term if out is None else out + term
+        return out
+
+    out = pass_axis(pass_axis(x, 0), 1)
+    return out[..., 0] if img.ndim == 2 else out
+
+
+def random_gaussian_blur(generator: torch.Generator, img: torch.Tensor
+                         ) -> torch.Tensor:
+    """`gaussian_blur` with k drawn from (1, 3, 5, 7); fp32."""
+    k = (1, 3, 5, 7)[int(torch.randint(0, 4, (), generator=generator,
+                                       device=generator.device))]
+    return img.float() if k == 1 else gaussian_blur(img, k)

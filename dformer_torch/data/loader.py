@@ -215,17 +215,22 @@ class NativeBatchLoader:
                     pass  # that batch is discarded
 
 
+def local_batch(batch_size: int, world: int) -> int:
+    """The rows of a global batch of `batch_size` that each of `world`
+    processes loads."""
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} not divisible by "
+                         f"world {world}")
+    return batch_size // world
+
+
 def train_batches(cfg, dataset_cls=None, shard=(0, 1),
                   synthetic: bool = False, native: bool = False):
     """The training loader: an epoch is batch_size * niters_per_epoch items
     by oversampling; each of `world` processes loads batch_size // world
     rows per step. native: decode with `NativeBatchLoader` (files on disk
     at the config's canvas; raises if the library cannot be built)."""
-    rank, world = shard
-    if cfg.batch_size % world:
-        raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
-                         f"world {world}")
-    local_bs = cfg.batch_size // world
+    local_bs = local_batch(cfg.batch_size, shard[1])
     file_length = cfg.batch_size * cfg.niters_per_epoch
     if synthetic:
         if native:

@@ -12,7 +12,8 @@ strings ("", "NA", "nan", ...) read as None. Rows keep file order.
     paths; lidar = pickle['ranges'][::-1][540:900] (the front 90 degrees).
   * FewShotTravDatasetBinary, FewShotTravRGBDDataset: episodic samplers;
     their numpy draws are the JAX package's, so the episodes are equal.
-  * labeled/unlabeled and k-fold splits of a manifest.
+  * labeled/unlabeled and k-fold splits of a manifest; the lidar
+    statistics of a manifest and its paths moved onto new roots.
 
 Host code only decodes (cv2 is imported at the first image read); the
 lidar z-score and the rgb normalisation run on the device
@@ -21,6 +22,7 @@ lidar z-score and the rgb normalisation run on the device
 """
 
 import csv
+import os
 import os.path as osp
 import pickle
 from typing import Dict, List, Optional
@@ -30,6 +32,7 @@ import torch
 
 # the Trav lidar scan's z-score statistics (configs.TRAV_LIDAR_MEAN/STD)
 from dformer_torch.configs import TRAV_LIDAR_MEAN, TRAV_LIDAR_STD
+from dformer_torch.parallel import dist
 
 Rows = List[Dict[str, Optional[str]]]
 
@@ -109,6 +112,46 @@ def read_lidar(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         data = pickle.load(f)
     return np.asarray(data["ranges"][::-1], np.float32)[540:900]
+
+
+def calc_depth_mean_std(csv_file: str, depth_col: str = "depth"):
+    """(mean, std) of every lidar value of a manifest's scans: the z-score
+    statistics of `configs.TRAV_LIDAR_MEAN` / `TRAV_LIDAR_STD`."""
+    scans = np.concatenate([read_lidar(r[depth_col])
+                            for r in read_csv(csv_file)])
+    return float(np.mean(scans)), float(np.std(scans))
+
+
+def rebase_manifest_paths(csv_file: str, img_base: str, depth_base: str,
+                          level: int = 4, out_csv: Optional[str] = None
+                          ) -> Rows:
+    """Move a manifest's image and scan paths onto new roots, keeping the
+    last `level` components of each, and write it to `out_csv` (default:
+    over `csv_file`) as pandas' `to_csv` writes the frame that
+    `read_csv(index_col=0)` read: the index column first, missing cells
+    empty, a "laser" column renamed "depth". Returns its rows
+    (`load_trav_csv`'s reading of the file written)."""
+    with open(csv_file, newline="") as f:
+        table = [r for r in csv.reader(f) if r]
+    header, body = table[0], table[1:]
+    depth_col = "laser" if "laser" in header[1:] else "depth"
+    img_col = "img" if "img" in header[1:] else "image"
+    moves = {header.index(depth_col, 1): depth_base,
+             header.index(img_col, 1): img_base}
+    for row in body:
+        row += [""] * (len(header) - len(row))
+        for i in range(1, len(header)):
+            if i in moves:  # a missing path rebases as pandas' "nan"
+                path = "nan" if row[i] in _NA else row[i]
+                row[i] = osp.join(moves[i], *path.split(os.sep)[-level:])
+            elif row[i] in _NA:
+                row[i] = ""
+    header = header[:1] + ["depth" if h == "laser" else h
+                           for h in header[1:]]
+    out_csv = out_csv or csv_file
+    with open(out_csv, "w", newline="") as f:
+        csv.writer(f, lineterminator="\n").writerows([header] + body)
+    return load_trav_csv(out_csv)
 
 
 def _imread_rgb(path):
@@ -272,9 +315,9 @@ def class_episodes_to_meta_batch(b):
 def trav_mirror_draws(generator: torch.Generator, batch: int
                       ) -> torch.Tensor:
     """[batch] bool: which samples a training batch mirrors (p = 0.5), on
-    the generator's device."""
-    return torch.rand(batch, generator=generator,
-                      device=generator.device) < 0.5
+    the generator's device; under a process group drawn for the global
+    batch, of which this rank keeps its `batch` rows."""
+    return dist.rand_rows((batch,), generator) < 0.5
 
 
 def trav_prepare_batch(rgb, laser, rgb_mean, rgb_std,

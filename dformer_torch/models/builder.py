@@ -24,6 +24,7 @@ from dformer_torch.models.decoders.upernet import UPerHead
 from dformer_torch.models.encoder import VARIANTS, DFormer
 from dformer_torch.models.trav import DFormerTrav
 from dformer_torch.ops.resize import resize_bilinear
+from dformer_torch.parallel import dist
 
 TRAV_BACKBONE = "DFormerTrav-Base"
 # the decoders that attach the FCN aux head whatever aux_rate is
@@ -152,7 +153,10 @@ class EncoderDecoder(nn.Module):
         all_rgb = torch.cat([s_rgb.reshape(B * S, *s_rgb.shape[2:]), q_rgb])
         all_depth = torch.cat([s_depth.reshape(B * S, *s_depth.shape[2:]),
                                q_depth])
-        feats = self.encode(all_rgb, all_depth, generator)
+        # under a process group a draw for the encoder's batch keeps this
+        # rank's rows of the global support and the global query batch
+        with dist.row_blocks(B * S, B):
+            feats = self.encode(all_rgb, all_depth, generator)
         top_s, top_q = feats[-1][:B * S], feats[-1][B * S:]
         q_feats = [f[B * S:] for f in feats]
 

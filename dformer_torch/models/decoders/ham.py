@@ -88,8 +88,8 @@ def _seeded_draw(n: int, d: int, r: int,
 def seeded_bases(b, d: int, r: int, device: torch.device) -> torch.Tensor:
     """Uniform NMF bases drawn from a torch.Generator seeded 0, L2-normalised
     over the channel dim: the port's deterministic bases. (The JAX package
-    draws its own from jax.random.PRNGKey(0); the bits differ, so parity
-    tests pass JAX's array in through `bases`.)
+    draws its own from its random key 0; the bits differ, so parity tests
+    pass JAX's array in through `bases`.)
 
     Drawn on the CPU, so the bits are the same on every device, and cached
     per device as one draw of max(b, SEEDED_ROWS) rows whose first b rows

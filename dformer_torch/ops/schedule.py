@@ -16,3 +16,19 @@ def warmup_poly_lr(step, base_lr: float, total_steps: int, warmup_steps: int,
     if step < warmup_steps:
         return base_lr * step / max(float(warmup_steps), 1.0)
     return poly_lr(step, base_lr, total_steps, power)
+
+
+def multi_stage_lr(step, stages) -> float:
+    """stages: [(until_step, lr)]: the rate of the first stage with step <
+    until_step, the last stage's past them all."""
+    for until, lr in stages:
+        if step < until:
+            return float(lr)
+    return float(stages[-1][1])
+
+
+def linear_increase_lr(step, start_lr: float, end_lr: float,
+                       warm_iters: int) -> float:
+    """start_lr rising linearly to end_lr over warm_iters steps (and on
+    past them)."""
+    return start_lr + step * (end_lr - start_lr) / float(warm_iters)

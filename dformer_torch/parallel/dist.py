@@ -13,7 +13,9 @@ evaluation. A draw for the batch (DropPath, dropout, NMF bases, the
 augmentation) is made for the global batch from the step's generator, the
 same on every rank, and each rank keeps its rows (`rand_rows`,
 `randint_rows`): a world-N run takes the steps a world-1 run takes on the
-same global batch.
+same global batch. A forward whose batch joins several global batches
+(the few-shot episode's support images, then its queries) names its
+blocks (`row_blocks`), so that each rank keeps its rows of each block.
 
 One process drives one device, so there is no mesh inside a process.
 """
@@ -26,6 +28,8 @@ import torch.distributed as dist
 
 # calls of `sync_grads`: the gradient all-reduces a run made
 grad_syncs = 0
+# the blocks of the local batch inside `row_blocks`, else None
+_blocks = None
 
 
 def active() -> bool:
@@ -77,11 +81,35 @@ def group_from_env(device="cuda"):
             dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def row_blocks(*sizes: int):
+    """Inside the block the local batch is the concatenation of blocks of
+    `sizes` rows, each this rank's rows of a global batch of world * size
+    rows that lie in the same order one after the other (`meta_forward`'s
+    B*S support images, then its B queries): a draw for the global batch
+    of all of them (`rand_rows`) keeps this rank's rows of each block."""
+    global _blocks
+    outer, _blocks = _blocks, tuple(sizes)
+    try:
+        yield
+    finally:
+        _blocks = outer
+
+
 def rank_rows(t: torch.Tensor) -> torch.Tensor:
     """This rank's rows of a global batch `t`: its contiguous block of
-    t.shape[0] // world rows (all of `t` without a group)."""
-    n = t.shape[0] // world()
-    return t[rank() * n:(rank() + 1) * n]
+    t.shape[0] // world rows (all of `t` without a group); inside
+    `row_blocks`, when `t` holds world * sum(sizes) rows, its rows of each
+    block, concatenated."""
+    w, r = world(), rank()
+    if _blocks is not None and t.shape[0] == w * sum(_blocks):
+        parts, start = [], 0
+        for n in _blocks:
+            parts.append(t[start + r * n:start + (r + 1) * n])
+            start += w * n
+        return torch.cat(parts)
+    n = t.shape[0] // w
+    return t[r * n:(r + 1) * n]
 
 
 def _global_shape(shape) -> tuple:

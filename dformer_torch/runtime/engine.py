@@ -63,11 +63,11 @@ class Engine:
 
 
 def single_process(tool: str) -> None:
-    """Raise when a launcher asks `tool` for more than one process: the
-    Trav tools are not data-parallel."""
+    """Raise when a launcher asks `tool`, a one-process tool (the Trav
+    k-fold runs, one process as in the JAX package), for more than one
+    process."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1:
         raise NotImplementedError(
-            f"{tool}: WORLD_SIZE={world}, but the Trav tools run as one "
-            "process (ROADMAP.md Queue 1, item 12: the Trav k-fold tool and "
-            "Trav data-parallel training)")
+            f"{tool}: WORLD_SIZE={world}, but this tool runs as one process, "
+            "as the JAX package's does; launch it without torchrun")

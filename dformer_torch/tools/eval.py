@@ -2,18 +2,22 @@
 on the config's val split (counterpart of `tools/eval.py`):
 
     python -m dformer_torch.tools.eval --config=local_configs.NYUDepthv2.DFormer_Large \\
-        [--continue_fpath=ckpt.pth] [--no-mst] [--sliding] [--amp] \\
-        [--val_batch_size=4] [--synthetic-data] [--parity-check] \\
-        [--device=cuda] [--exported=model.pt2]
+        [--continue_fpath=ckpt.pth | orbax dir] [--no-mst] [--sliding] \\
+        [--amp] [--val_batch_size=4] [--synthetic-data] [--parity-check] \\
+        [--save_path=DIR] [--device=cuda] [--exported=model.pt2]
     torchrun --nproc_per_node=N -m dformer_torch.tools.eval --config=...
 
 Multi-scale + flip by default (scales [0.5, 0.75, 1.0, 1.25, 1.5] when the
 config's eval_scale_array is [1], flip from eval_flip); fp32 with TF32 off
 unless --amp (bf16). Without --continue_fpath the weights are random from
-seed 0. --exported serves an artifact of `tools.export` instead of a
-model: single scale at the artifact's H x W (MSF and sliding are turned
-off). Under torchrun each process evaluates its share of the val split
-and the hists are summed; rank 0 prints each class's IoU, then
+seed 0; a directory is read as the JAX trainer's orbax checkpoint
+(`utils/orbax.py`, needs tensorstore). --exported serves an artifact of
+`tools.export` instead of a model: single scale at the artifact's H x W
+(MSF and sliding are turned off). --save_path writes each image's labels
+as a palette PNG `<save_path>/<file name>_pred.png`
+(`eval/visualize.py`). Under torchrun each process evaluates its share of
+the val split (and saves its images' PNGs) and the hists are summed; rank
+0 prints the per-class table (IoU, Acc), then
 {'mIoU': .., 'mAcc': .., 'mF1': ..}.
 """
 
@@ -31,7 +35,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True)
     ap.add_argument("--continue_fpath", default=None,
-                    help="torch checkpoint (.pth, .pt, .pth.tar)")
+                    help="torch checkpoint (.pth, .pt, .pth.tar) or the JAX "
+                         "trainer's orbax checkpoint directory")
     ap.add_argument("--mst", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--sliding", action=argparse.BooleanOptionalAction,
@@ -40,7 +45,8 @@ def parse_args(argv=None):
                     default=False, help="bf16 eval; default fp32")
     ap.add_argument("--val_batch_size", type=int, default=4)
     ap.add_argument("--synthetic-data", action="store_true")
-    ap.add_argument("--save_path", default=None)
+    ap.add_argument("--save_path", default=None,
+                    help="write each image's labels as a palette PNG here")
     ap.add_argument("--exported", default=None,
                     help="serve a tools.export artifact instead of a "
                          "checkpoint: single-scale eval at the artifact's "
@@ -55,28 +61,21 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.save_path:
-        raise NotImplementedError(
-            "--save_path is not ported yet (ROADMAP.md Queue 1, item 8b: "
-            "prediction saving)")
-    if args.continue_fpath and not args.continue_fpath.endswith(
-            (".pth", ".pt", ".pth.tar")):
-        raise NotImplementedError(
-            "orbax checkpoint directories are not read yet (ROADMAP.md "
-            "Queue 1, item 12c: orbax checkpoints)")
 
     from dformer_torch.parallel import dist
 
     with dist.group_from_env(args.device):
-        _evaluate(args)
+        return _evaluate(args)
 
 
 def _evaluate(args):
-    """Evaluate and, on rank 0, print the metrics."""
+    """Evaluate and, on rank 0, print the metrics; returns the merged
+    `Metrics`."""
     import torch
 
     from dformer_torch import entry
     from dformer_torch.configs import load_config
+    from dformer_torch.eval.visualize import make_save_hook, print_iou
     from dformer_torch.parallel import dist
 
     cfg = load_config(args.config)
@@ -89,21 +88,23 @@ def _evaluate(args):
         print("--exported serves the artifact's one input shape: MSF and "
               "sliding are off for this run")
         args.mst = args.sliding = False
+    save_hook = make_save_hook(cfg, args.save_path) if args.save_path \
+        else None
     if args.mst:
         scales = cfg.eval_scale_array
         if scales == [1]:
             scales = MSF_SCALES
-        m = ev.evaluate_msf(batches, scales=scales, flip=cfg.eval_flip)
+        m = ev.evaluate_msf(batches, scales=scales, flip=cfg.eval_flip,
+                            save_hook=save_hook)
     else:
-        m = ev.evaluate(batches)
+        m = ev.evaluate(batches, save_hook=save_hook)
     m.merge_across_processes()
     if dist.rank() != 0:
-        return
+        return m
     ious, miou = m.compute_iou()
-    _, macc = m.compute_pixel_acc()
+    accs, macc = m.compute_pixel_acc()
     _, mf1 = m.compute_f1()
-    for name, iou in zip(cfg.class_names, ious):
-        print(f"  {name}: {iou}")
+    print_iou(ious, accs, cfg.class_names)
     print(dict(mIoU=miou, mAcc=macc, mF1=mf1), flush=True)
     if args.parity_check:
         target = PARITY_TARGETS.get((cfg.dataset_name, cfg.backbone))
@@ -119,6 +120,7 @@ def _evaluate(args):
                 tolerance=PARITY_TOLERANCE,
                 within_tolerance=abs(delta) <= PARITY_TOLERANCE,
                 synthetic=bool(args.synthetic_data))))
+    return m
 
 
 if __name__ == "__main__":

@@ -44,11 +44,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.continue_fpath and not args.continue_fpath.endswith(
-            (".pth", ".pt", ".pth.tar")):
-        raise NotImplementedError(
-            "orbax checkpoint directories are not read yet (ROADMAP.md "
-            "Queue 1, item 12c: orbax checkpoints)")
 
     import torch
 

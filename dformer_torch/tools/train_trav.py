@@ -1,9 +1,10 @@
-"""Semi-supervised Trav training on one card (counterpart of
-`tools/train_trav.py`):
+"""Semi-supervised Trav training on one card, or data-parallel on several
+under torchrun (counterpart of `tools/train_trav.py`):
 
     python -m dformer_torch.tools.train_trav --config=local_configs.Trav.DFormer_Base \\
         [--labeled_csv=labeled.csv] [--unlabeled_csv=unlabeled.csv] \\
         [--epochs=N] [--save_dir=DIR] [--no-amp] [--device=cuda]
+    torchrun --nproc_per_node=N -m dformer_torch.tools.train_trav ...
 
 DFormerTrav-Base + the config's decoder (the aux head's loss weighted by
 cfg.aux_rate) trains from scratch (no pretrained load) with supervision on the labelled rows of --labeled_csv (default
@@ -11,8 +12,14 @@ cfg.train_source; batch cfg.batch_size, mirrored at random, bf16 compute
 on fp32 parameters unless --no-amp), then writes an argmax mask for every
 row of --unlabeled_csv (default cfg.eval_source) and the manifest
 `unlabeled_masks.csv` into --save_dir (default cfg.save_dir). Manifests are
-read with the stdlib csv module (`data/trav.py`). One process: a
-launcher's WORLD_SIZE > 1 raises.
+read with the stdlib csv module (`data/trav.py`).
+
+Under torchrun each of the N processes drives one card, loads
+batch_size // N rows of each global batch and steps as one process would
+on the global batch (`parallel/dist.py`); each pseudo-labels its share of
+the unlabelled rows and rank 0 writes the manifest. (The JAX tool shards
+the rows but takes no gradient all-reduce: each of its processes trains
+a model of its own.)
 """
 
 import argparse
@@ -54,9 +61,9 @@ def run(cfg, args, datasets=None) -> dict:
 
     from dformer_torch import entry
     from dformer_torch.config import AttrDict
-    from dformer_torch.data.loader import Loader
+    from dformer_torch.data.loader import Loader, local_batch
     from dformer_torch.eval.pseudo_label import infer_unlabeled_masks
-    from dformer_torch.runtime.engine import Engine, single_process
+    from dformer_torch.runtime.engine import Engine
     from dformer_torch.train.fss import TravPrep
     from dformer_torch.train.loop import train_step
 
@@ -64,12 +71,13 @@ def run(cfg, args, datasets=None) -> dict:
         cfg.nepochs = args.epochs
     save_dir = args.save_dir or cfg.get("save_dir", "output/unlabeled_masks")
     device = torch.device(args.device)
-    single_process("tools.train_trav")
     with Engine(cfg, args.device) as engine:
         log = engine.logger
         train_ds, unlabeled_ds = datasets or datasets_from_csv(cfg, args)
-        train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
-                              drop_last=True)
+        train_loader = Loader(train_ds,
+                              local_batch(cfg.batch_size, engine.world_size),
+                              shuffle=True, drop_last=True,
+                              shard=engine.data_shard())
         cfg.niters_per_epoch = max(len(train_loader), 1)
 
         # from scratch: no pretrained load, as in the JAX tool
@@ -104,7 +112,7 @@ def run(cfg, args, datasets=None) -> dict:
 
         # the pseudo-label stage
         def unlabeled_batches():
-            for b in Loader(unlabeled_ds, 1):
+            for b in Loader(unlabeled_ds, 1, shard=engine.data_shard()):
                 rgb, laser = prep(b["rgb"], b["laser"])
                 yield dict(rgb=rgb, laser=laser, rgb_path=b["rgb_path"],
                            depth_path=b["depth_path"])

@@ -1,10 +1,11 @@
-"""Few-shot episodic Trav training on one card (counterpart of
-`tools/train_trav_fss.py`):
+"""Few-shot episodic Trav training on one card, or data-parallel on several
+under torchrun (counterpart of `tools/train_trav_fss.py`):
 
     python -m dformer_torch.tools.train_trav_fss --config=local_configs.Trav.DFormer_Base \\
         [--s_csv=support.csv] [--q_csv=query.csv] [--epochs=N] \\
         [--class-episodes [--queries=1] [--contrastive-weight=0.1]] \\
         [--no-amp] [--device=cuda]
+    torchrun --nproc_per_node=N -m dformer_torch.tools.train_trav_fss ...
 
 DFormerTrav-Base + the config's decoder (bf16 compute on fp32 parameters
 unless --no-amp) trains on episodes of cfg.shots support images and one query
@@ -17,7 +18,16 @@ mIoU saves a checkpoint under cfg.checkpoint_dir. SIGTERM or SIGINT stops
 at the next epoch and saves a rescue checkpoint. The encoder is loaded
 from cfg.pretrained_model when it exists. With cfg.use_wandb each
 evaluation's metrics go to wandb (`runtime/wandb.py`) when it is
-installed. One process: a launcher's WORLD_SIZE > 1 raises.
+installed.
+
+Under torchrun each of the N processes drives one card, loads
+batch // N episodes of each global batch and steps as one process would
+on the global batch (`train/fss.py`: global BatchNorm statistics over the
+support and query images, loss and draws, the trainable parameters'
+gradients summed); each evaluates its share of the episodes and the
+hists are summed; rank 0 logs, writes the checkpoints and logs to wandb.
+(The JAX tool shards the episodes but takes no gradient all-reduce: each
+of its processes trains a model of its own.)
 
 The support manifest (--s_csv, default cfg.train_source) keeps its
 labelled rows; the query manifest is --q_csv (default cfg.eval_source).
@@ -81,22 +91,24 @@ def run(cfg, args, datasets=None, guard=None) -> dict:
     import torch
 
     from dformer_torch import entry
-    from dformer_torch.data.loader import Loader
+    from dformer_torch.data.loader import Loader, local_batch
     from dformer_torch.data.trav import class_episodes_to_meta_batch
-    from dformer_torch.runtime.engine import Engine, single_process
+    from dformer_torch.runtime.engine import Engine
     from dformer_torch.runtime.preempt import PreemptionGuard
     from dformer_torch.runtime.wandb import WandbHook
     from dformer_torch.train.checkpoint import CheckpointManager
     from dformer_torch.train.fss import FSSTrainer, fss_evaluate
 
     epochs = args.epochs or cfg.get("epochs", cfg.nepochs)
-    single_process("tools.train_trav_fss")
     with Engine(cfg, args.device) as engine:
         log = engine.logger
         train_ds, val_ds = datasets or datasets_from_csv(cfg, args)
         batch = min(cfg.batch_size, len(train_ds)) if args.class_episodes \
             else cfg.batch_size
-        train_loader = Loader(train_ds, batch, shuffle=False, drop_last=True)
+        train_loader = Loader(train_ds,
+                              local_batch(batch, engine.world_size),
+                              shuffle=False, drop_last=True,
+                              shard=engine.data_shard())
         cfg.niters_per_epoch = max(len(train_loader), 1)
 
         model, optimizer, schedule, mask = entry.build_fss_training(
@@ -145,8 +157,10 @@ def run(cfg, args, datasets=None, guard=None) -> dict:
                 out["epoch_seconds"][epoch] = time.perf_counter() - t0
 
                 t0 = time.perf_counter()
-                m = fss_evaluate(model, (trainer.prepare(b) for b in
-                                         Loader(val_ds, 1)), cfg)
+                m = fss_evaluate(model, (
+                    trainer.prepare(b) for b in
+                    Loader(val_ds, 1, shard=engine.data_shard())), cfg)
+                m.merge_across_processes()
                 _, miou = m.compute_iou()
                 out["eval_seconds"][epoch] = time.perf_counter() - t0
                 out["miou"][epoch] = miou

@@ -30,9 +30,11 @@ BATCH = 8
 DECODERS = ("ham", "MLPDecoder", "UPernet", "deeplabv3+", "nl")
 
 
-def trace(mode: str = "forward", decoder: str = "ham", out=None) -> dict:
+def trace(mode: str = "forward", decoder: str = "ham", out=None,
+          reps=None) -> dict:
     """Trace `mode` ("forward", "train" or "eval") with the `decoder` head
-    on the card; returns the JSON line's record."""
+    on the card, over `reps` runs after 3 untraced ones (default 10
+    forwards, 3 steps, 2 MSF batches); returns the JSON line's record."""
     batch_size = BATCH
     rng = np.random.RandomState(0)
     rgb = torch.from_numpy(rng.rand(BATCH, 480, 640, 3)
@@ -45,7 +47,7 @@ def trace(mode: str = "forward", decoder: str = "ham", out=None) -> dict:
                                       decoder=decoder)
         gt = torch.from_numpy(rng.randint(0, 40, (BATCH, 480, 640))).cuda()
         steps = iter(range(100))
-        reps, what = 3, "step"
+        default_reps, what = 3, "step"
 
         def run():
             entry.train_steps(*trainer, [(rgb, depth, gt)],
@@ -61,18 +63,19 @@ def trace(mode: str = "forward", decoder: str = "ham", out=None) -> dict:
             cfg, torch.bfloat16, "cuda", seed=0, val_batch_size=batch_size,
             synthetic=True, n=batch_size)
         batch = next(iter(batches))
-        reps, what = 2, "msf_flip_batch"
+        default_reps, what = 2, "msf_flip_batch"
 
         def run():
             ev.evaluate_msf([batch], MSF_SCALES, flip=cfg.eval_flip)
     else:
         model = entry.build("DFormer-Large", (480, 640), 40, torch.bfloat16,
                             "cuda", seed=0, decoder=decoder)
-        reps, what = 10, "forward"
+        default_reps, what = 10, "forward"
 
         def run():
             entry.infer(model, rgb, depth)
 
+    reps = reps or default_reps
     for _ in range(3):
         run()
     torch.cuda.synchronize()

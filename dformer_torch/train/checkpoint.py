@@ -1,5 +1,6 @@
 """Train checkpoints with the reference's retention policy (counterpart of
-`dformer_tpu/train/checkpoint.py`, which writes orbax directories).
+`dformer_tpu/train/checkpoint.py`, which writes orbax directories; the
+port restores those too, `utils/orbax.py`).
 
 One torch file per checkpoint, `epoch-{E}_miou_{round(M, 2)}.pth`, holding
 {"model": state_dict, "optimizer": state_dict, "step", "epoch", "frozen":
@@ -60,12 +61,7 @@ class CheckpointManager:
         return path
 
     def _write(self, trainer, path, stem, epoch, miou, extra):
-        tmp = path + ".tmp"
-        torch.save(dict(model=trainer.model.state_dict(),
-                        optimizer=trainer.optimizer.state_dict(),
-                        step=int(trainer.step), epoch=int(epoch),
-                        frozen=list(trainer.frozen)), tmp)
-        os.replace(tmp, path)
+        write_checkpoint(trainer, epoch, path)
         with open(osp.join(self.dir, stem + ".meta.json"), "w") as f:
             json.dump(dict(epoch=epoch, miou=miou, **(extra or {})), f)
         self._log(f"saved checkpoint {stem}.pth")
@@ -100,7 +96,16 @@ class CheckpointManager:
         """Load `path` into the trainer's model, optimizer and step; returns
         the epoch to continue with (the saved epoch + 1). A checkpoint whose
         frozen set differs from the trainer's is refused: the optimizer's
-        state is indexed by the position of each parameter in its groups."""
+        state is indexed by the position of each parameter in its groups.
+        A directory is read as the JAX trainer's orbax checkpoint
+        (`utils/orbax.restore_trainer`)."""
+        if osp.isdir(path):
+            from dformer_torch.utils.orbax import restore_trainer
+
+            epoch = restore_trainer(trainer, path)
+            self._log(f"restored orbax checkpoint {path} (step "
+                      f"{trainer.step}, resume at epoch {epoch})")
+            return epoch
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         if sorted(ckpt["frozen"]) != sorted(trainer.frozen):
             raise ValueError(
@@ -114,6 +119,17 @@ class CheckpointManager:
         self._log(f"restored checkpoint {path} (step {trainer.step}, resume "
                   f"at epoch {epoch + 1})")
         return epoch + 1
+
+
+def write_checkpoint(trainer, epoch: int, path: str) -> None:
+    """The trainer's model, optimizer, step and frozen names as epoch
+    `epoch` in the torch file `path` (through a temporary file)."""
+    tmp = path + ".tmp"
+    torch.save(dict(model=trainer.model.state_dict(),
+                    optimizer=trainer.optimizer.state_dict(),
+                    step=int(trainer.step), epoch=int(epoch),
+                    frozen=list(trainer.frozen)), tmp)
+    os.replace(tmp, path)
 
 
 def state_difference(a, b) -> Optional[str]:

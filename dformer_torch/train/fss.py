@@ -9,6 +9,13 @@ contrastive prototype term.
 Random draws follow `train/loop.py`: the mirror flips of iteration `it` of
 epoch `e` come from (seed, e * 10007 + it), the DropPath, dropout and NMF
 draws of step k from (seed, k).
+
+Data-parallel (one process per card under `torchrun`, `parallel/dist.py`):
+each rank steps on its episodes of the global batch, with the global
+batch's draws (the flips, and in `meta_forward` those of the support and
+query blocks), BatchNorm statistics and loss, and the optimizer's
+gradients are summed over the ranks, so every rank takes the step one
+process takes on the global batch.
 """
 
 from typing import Dict, Optional
@@ -21,6 +28,7 @@ from dformer_torch.models.fewshot import contrastive_loss
 from dformer_torch.ops.loss import softmax_cross_entropy_masked_mean
 from dformer_torch.ops.metrics import Metrics
 from dformer_torch.ops.resize import resize_bilinear
+from dformer_torch.parallel import dist
 from dformer_torch.train.loop import (AUGMENT_STREAM, STEP_STREAM, _to_device,
                                       derived_seed)
 from dformer_torch.train.optim import zero_missing_grads
@@ -58,7 +66,13 @@ def fss_train_step(model, optimizer: torch.optim.Optimizer, schedule,
     model's device. The contrastive term takes the query mask with ignored
     pixels set to background, bilinearly resized to the top-stage grid and
     rounded. `generator` draws DropPath, dropout and the NMF bases; `bases`
-    pins the NMF bases instead."""
+    pins the NMF bases instead.
+
+    Under a process group the inputs are this rank's episodes of the
+    global batch: the loss (and the contrastive term) is the global
+    batch's, the same on every rank, and the gradients of the optimizer's
+    parameters are summed over the ranks before the update (the frozen
+    encoder's stay this rank's own)."""
     lr = schedule(step)
     for group in optimizer.param_groups:
         group["lr"] = lr
@@ -77,13 +91,22 @@ def fss_train_step(model, optimizer: torch.optim.Optimizer, schedule,
         protos = torch.stack([ep["bg"], ep["fg"]])  # [K=2, B, C]
         con = contrastive_loss(ep["q_top"].float(), protos.float(),
                                torch.round(qm).long())
+        if dist.world() > 1:  # this rank's share of the global mean
+            con = con / dist.world()
         loss = loss + contrastive_weight * con
     loss.backward()
+    loss = loss.detach()
+    con = con.detach() if with_con else None
+    if dist.active():
+        dist.sync_grads(p for g in optimizer.param_groups
+                        for p in g["params"])
+        loss = dist.all_sum(loss)
+        con = dist.all_sum(con) if with_con else None
     zero_missing_grads(optimizer)
     optimizer.step()
     if with_con:
-        return loss.detach(), con.detach()
-    return loss.detach()
+        return loss, con
+    return loss
 
 
 @torch.inference_mode()
@@ -152,6 +175,7 @@ class FSSTrainer:
         self.frozen = sorted(n for n, t in trainable_mask.items() if not t)
         self.step = 0
         self.prep = TravPrep(cfg, seed, next(model.parameters()).device)
+        self._replicas_checked = False
 
     def prepare(self, b: dict, epoch: Optional[int] = None,
                 it: Optional[int] = None) -> dict:
@@ -186,4 +210,9 @@ class FSSTrainer:
             self.prep.step_generator(self.step), contrastive_weight=self.contrastive_weight,
             background=self.cfg.background)
         self.step += 1
+        if dist.world() > 1 and not self._replicas_checked:
+            # every rank starts from the seed and takes the summed
+            # gradients: their parameters must agree
+            dist.check_replicas_equal(list(self.model.parameters()))
+            self._replicas_checked = True
         return out

@@ -1,12 +1,13 @@
-"""Torch checkpoints (`.pth`, `.pt`, `.pth.tar`) into the port's model.
+"""Checkpoints into the port's model: torch files (`.pth`, `.pt`,
+`.pth.tar`) and the JAX trainer's orbax directories (`utils/orbax.py`).
 
 The port's modules keep the reference model's state_dict key names, so a
-reference checkpoint loads by name. Orbax directories, which the JAX
-trainer writes, are not read yet (ROADMAP.md Queue 1, item 12c).
-`load_pretrained_encoder` fills the encoder from a pretrained backbone
-file and names what it filled, for the frozen set of training.
+reference checkpoint loads by name. `load_pretrained_encoder` fills the
+encoder from a pretrained backbone file and names what it filled, for the
+frozen set of training.
 """
 
+import os.path as osp
 from typing import Dict, List
 
 import torch
@@ -20,7 +21,13 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     fixed momentum and has no such buffer.
 
     The file is unpickled in full (`weights_only=False`, as released
-    checkpoints hold more than tensors): load only files you trust."""
+    checkpoints hold more than tensors): load only files you trust. A
+    directory is read as an orbax checkpoint of the JAX trainer: its
+    params and batch_stats."""
+    if osp.isdir(path):
+        from dformer_torch.utils.orbax import model_state, read_tree
+
+        return model_state(read_tree(path))
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     for key in ("state_dict_ema", "model", "state_dict"):
         if key in ckpt:

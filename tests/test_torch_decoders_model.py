@@ -153,7 +153,7 @@ def uper(narrow):
     state0 = TrainState(
         step=jnp.asarray(0), params=params,
         batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
-        opt_state=tx.init(params))
+        opt_state=jax.jit(tx.init)(params))
     return dict(cfg=cfg, jmodel=jmodel, variables=variables, tmodel=tmodel,
                 batches=batches, jax_step=jax_step, state0=state0)
 

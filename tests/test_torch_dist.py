@@ -225,3 +225,63 @@ def test_group_batchnorm_and_loss_match_jax_on_the_global_batch(runs):
     for r in ranks:
         for key in ("bn_mean", "bn_var", "loss"):
             _close(r[key], want[key], JAX_STATS_REL, key)
+
+
+# --- the Trav tools ------------------------------------------------------------
+
+TRAV_STATE_REL = 1e-5   # of max(each leaf's max |world 1|, STATE_FLOOR)
+
+
+def _same_state(ranks, want, key):
+    for name, w in want.items():
+        assert torch.equal(ranks[0][key][name], ranks[1][key][name]), name
+        if w.dtype.is_floating_point:
+            _close(ranks[0][key][name], w, TRAV_STATE_REL, name, STATE_FLOOR)
+        else:
+            assert torch.equal(ranks[0][key][name], w), name
+
+
+def test_trav_fss_tool_two_ranks_take_the_world_1_step(runs):
+    """One step of `tools.train_trav_fss.run` on class episodes (global
+    batch 2, one episode per rank): the loss and its contrastive term, and
+    every parameter and BatchNorm statistic (global statistics over the
+    support and query images), equal world 1's; the episodic mIoU of the
+    sharded evaluation, its hists merged, is world 1's, and rank 0 alone
+    wrote its one checkpoint; a rescue file of the trained state, written
+    by rank 0, restores on every rank to that state."""
+    ranks, one, _ = runs
+    for r in ranks:
+        for key in ("fss_losses", "fss_contrastive"):
+            np.testing.assert_allclose(list(r[key].values()),
+                                       list(one[key].values()),
+                                       rtol=LOSS_REL, atol=0)
+        assert r["fss_miou"] == one["fss_miou"]
+        assert r["fss_checkpoints"] == one["fss_checkpoints"]
+        assert r["fss_rescue_difference"] is None
+    assert len(one["fss_checkpoints"]) == (1 if one["fss_miou"][1] > 0
+                                           else 0)
+    _same_state(ranks, one["fss_state"], "fss_state")
+
+
+def test_train_trav_tool_two_ranks_take_the_world_1_step(runs):
+    """One supervised step of `tools.train_trav.run` (global batch 2, one
+    row per rank, the mirror draws of the global batch): the loss and every
+    leaf against world 1's."""
+    ranks, one, _ = runs
+    for r in ranks:
+        np.testing.assert_allclose(list(r["trav_losses"].values()),
+                                   list(one["trav_losses"].values()),
+                                   rtol=LOSS_REL, atol=0)
+    _same_state(ranks, one["trav_state"], "trav_state")
+
+
+def test_train_trav_tool_writes_world_1s_pseudo_labels_once(runs):
+    """The 3 unlabelled images labelled 2 / 1 by the ranks: one manifest,
+    in row order, equal to world 1's, and the same masks."""
+    ranks, one, _ = runs
+    assert one["manifest"].count("\n") == worker.TRAV_UNLABELED + 1
+    for r in ranks:
+        assert r["manifest"] == one["manifest"]
+        assert list(r["masks"]) == list(one["masks"])
+        for name, mask in one["masks"].items():
+            np.testing.assert_array_equal(r["masks"][name], mask)

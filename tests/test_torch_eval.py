@@ -22,7 +22,6 @@ from dformer_torch.eval.evaluate import Evaluator as TEvaluator
 from dformer_torch.models import build_model as t_build_model
 from dformer_torch.models.encoder import VARIANTS as T_VARIANTS
 from dformer_torch.ops import metrics as tm
-from dformer_torch.tools import eval as t_eval_tool
 from dformer_torch.utils.convert import from_jax_variables
 from dformer_tpu.config import AttrDict
 from dformer_tpu.eval.evaluate import Evaluator as JEvaluator
@@ -335,16 +334,3 @@ def test_build_evaluator_runs_msf_on_synthetic_batches():
     assert all(np.isfinite(v) for v in (m.compute_iou()[1],
                                          m.compute_pixel_acc()[1],
                                          m.compute_f1()[1]))
-
-
-@pytest.mark.parametrize("argv, item", [
-    # ids kept from the list's former first case, --exported (now served:
-    # tests/test_torch_export.py)
-    pytest.param(["--save_path", "out"], "item 8b", id="argv1-item 8b"),
-    pytest.param(["--continue_fpath", "ckpt_dir"], "item 12c",
-                 id="argv2-item 12c"),
-])
-def test_eval_tool_names_what_is_not_ported(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        t_eval_tool.main(["--config=local_configs.NYUDepthv2.DFormer_Large",
-                          "--device=cpu", *argv])

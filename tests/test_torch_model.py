@@ -129,6 +129,40 @@ def test_encoder_stages_match_jax(pair):
                                    err_msg=f"stage {i}")
 
 
+# DFormer-Large's widths, heads, windows and MLP ratios, one block a stage
+LARGE1 = dict(T_VARIANTS["DFormer-Large"], depths=(1, 1, 1, 1))
+
+
+def test_encoder_stages_match_jax_at_large_widths():
+    """The encoder at DFormer-Large's widths (96-576), one block per stage,
+    64x96, on numpy-drawn weights: each stage against the JAX encoder's,
+    to the tolerance of test_encoder_stages_match_jax."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(J_VARIANTS, "DFormer-Large1", LARGE1)
+        mp.setitem(T_VARIANTS, "DFormer-Large1", LARGE1)
+        cfg = AttrDict(backbone="DFormer-Large1", decoder="ham",
+                       num_classes=11, decoder_embed_dim=64,
+                       drop_path_rate=0.1, aux_rate=0.0, bn_eps=1e-3)
+        jmodel = j_build_model(cfg, pallas="off")
+        rng = np.random.RandomState(3)
+        rgb, modal = (rng.randn(1, *HW, 3).astype(np.float32)
+                      for _ in range(2))
+        shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
+                                jnp.asarray(rgb), jnp.asarray(modal))
+        variables = _random_variables(dict(shapes), seed=4)
+        want = jax.jit(lambda v, r, m: jmodel.apply(
+            v, r, m, method=JEncoderDecoder.encode))(
+                variables, jnp.asarray(rgb), jnp.asarray(modal))
+        tmodel = t_build_model(cfg, device="cpu").eval()
+        tmodel.load_state_dict(from_jax_variables(variables), strict=True)
+    with torch.no_grad():
+        got = tmodel.encode(torch.from_numpy(rgb), torch.from_numpy(modal))
+    assert [g.shape[-1] for g in got] == list(LARGE1["dims"])
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-4,
+                                   rtol=1e-3, err_msg=f"stage {i}")
+
+
 def test_full_logits_match_jax(pair):
     with torch.no_grad():
         got = pair["tmodel"](torch.from_numpy(pair["rgb"]),

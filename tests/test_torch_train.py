@@ -242,7 +242,7 @@ def test_train_steps_match_jax(pair, monkeypatch):
     state = TrainState(
         step=jnp.asarray(0), params=params,
         batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
-        opt_state=tx.init(params))
+        opt_state=jax.jit(tx.init)(params))
     step_fn = make_train_step(jmodel, tx, cfg)
     key = jax.random.PRNGKey(0)
     want_losses = []

@@ -21,6 +21,7 @@ import optax
 from dformer_torch import configs as t_configs
 from dformer_torch import entry
 from dformer_torch.data import augment as t_aug
+from dformer_torch.eval import draw as t_draw
 from dformer_torch.models import build_model as t_build_model
 from dformer_torch.models.decoders import ham as t_ham
 from dformer_torch.models.encoder import VARIANTS as T_VARIANTS
@@ -40,6 +41,7 @@ from dformer_torch.utils.checkpoint import \
     load_pretrained_encoder as t_load_pretrained
 from dformer_torch.utils.convert import from_jax_variables
 from dformer_tpu.config import AttrDict as JAttrDict
+from dformer_tpu.eval import draw as j_draw
 from dformer_tpu.models import build_model as j_build_model
 from dformer_tpu.models.decoders import ham as j_ham
 from dformer_tpu.models.encoder import VARIANTS as J_VARIANTS
@@ -255,7 +257,7 @@ def test_checkpoint_retention_latest_best_match_jax(tmp_path):
     params = {"w": jnp.ones((2, 2))}
     tx = optax.sgd(0.1)
     jstate = TrainState(step=jnp.asarray(0), params=params, batch_stats={},
-                        opt_state=tx.init(params))
+                        opt_state=jax.jit(tx.init)(params))
     model = torch.nn.Linear(2, 2)
     tstate = type("State", (), dict(
         model=model, optimizer=torch.optim.SGD(model.parameters(), lr=0.1),
@@ -313,14 +315,21 @@ def _tool_args(*extra):
          *extra])
 
 
-def test_train_tool_checkpoint_loads_in_the_eval_tool(narrow, tmp_path,
+@pytest.fixture(scope="module")
+def tool_run(narrow, tmp_path_factory):
+    """(config, result) of one `tools.train.run` on the CPU: 2 iterations,
+    evaluation, an epoch-1 checkpoint."""
+    cfg = _cfg(nepochs=1, log_dir_base=str(tmp_path_factory.mktemp("run")))
+    return cfg, t_train_tool.run(cfg, _tool_args())
+
+
+def test_train_tool_checkpoint_loads_in_the_eval_tool(narrow, tool_run,
                                                       monkeypatch, capsys):
     """`run` on the CPU: 2 iterations, evaluation, an epoch-1 checkpoint;
     the eval tool reads it and gets the train tool's mIoU."""
-    cfg = _cfg(nepochs=1, log_dir_base=str(tmp_path / "run"))
+    cfg, out = tool_run
     monkeypatch.setitem(t_configs.LEAVES, "local_configs.Test.Narrow",
                         lambda: _cfg())
-    out = t_train_tool.run(cfg, _tool_args())
     assert out["trainer"].step == 2 and np.isfinite(out["losses"][1])
     (path,) = glob.glob(osp.join(cfg.checkpoint_dir, "epoch-1_miou_*.pth"))
     assert path.endswith(f"epoch-1_miou_{round(out['best_miou'], 2)}.pth")
@@ -338,6 +347,16 @@ def test_train_tool_checkpoint_loads_in_the_eval_tool(narrow, tmp_path,
                          .astype(np.float32))
     with torch.no_grad():
         assert torch.equal(fresh.eval()(x, x), trained(x, x))
+
+
+def test_train_log_parses_as_jax_does(tool_run):
+    """The report drawer's series of the train tool's log: the port's
+    `parse_log_metrics` gives the JAX one's, the epoch's loss and mIoU."""
+    cfg, out = tool_run
+    losses, mious = t_draw.parse_log_metrics(cfg.log_file)
+    assert (losses, mious) == j_draw.parse_log_metrics(cfg.log_file)
+    assert [e for e, _ in losses] == [e for e, _ in mious] == [1]
+    assert mious[0][1] == pytest.approx(out["best_miou"], abs=0.01)
 
 
 def test_train_tool_rescue_checkpoint_resumes(narrow, tmp_path):
@@ -402,7 +421,7 @@ def test_run_epoch_matches_jax_trainer(narrow, monkeypatch):
     state = TrainState(
         step=jnp.asarray(0), params=params,
         batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
-        opt_state=tx.init(params))
+        opt_state=jax.jit(tx.init)(params))
     want, got = _LossRecorder(), _LossRecorder()
     JTrainer(jmodel, state, tx, jcfg, tb=want, seed=cfg.seed).run_epoch(
         batches, epoch)

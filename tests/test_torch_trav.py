@@ -1,7 +1,8 @@
 """The port's Trav model against the JAX package on the CPU, fp32, on the
 same numpy-drawn weights: the packed-in-projection MultiHeadAttention, the
 lidar expansion (and its bf16 cast order), DFormerTrav-Base's encoder
-stages and logits at 64x96, `meta_forward` at B 1, S 1, the converter and
+stages and logits at 64x96 (stage 2 cut to two blocks), `meta_forward`
+at B 1, S 1, the converter and
 the pretrained load on the Trav tree, the decay mask, the builder's
 heads and refusals and the Trav config through `entry.build_trav`."""
 
@@ -17,6 +18,7 @@ from dformer_torch import entry
 from dformer_torch.models import build_model as t_build_model
 from dformer_torch.models.builder import EncoderDecoder as TEncoderDecoder
 from dformer_torch.models import nn as t_nn
+from dformer_torch.models.encoder import VARIANTS as T_VARIANTS
 from dformer_torch.models.trav import Attention1Dto2D as TAttention1Dto2D
 from dformer_torch.models.trav import MultiHeadAttention as TMHA
 from dformer_torch.train.optim import decay_mask as t_decay_mask
@@ -26,6 +28,7 @@ from dformer_tpu.config import AttrDict
 from dformer_tpu.models import build_model as j_build_model
 from dformer_tpu.models.builder import EncoderDecoder as JEncoderDecoder
 from dformer_tpu.models.decoders.ham import _uniform_bases
+from dformer_tpu.models.encoder import VARIANTS as J_VARIANTS
 from dformer_tpu.models.trav import Attention1Dto2D as JAttention1Dto2D
 from dformer_tpu.models.trav import MultiHeadAttention as JMHA
 from dformer_tpu.train.optim import decay_mask as j_decay_mask
@@ -205,13 +208,27 @@ def test_attn2_attends_one_key(expansion):
 
 # --- DFormerTrav-Base + ham -------------------------------------------------
 
+# DFormer-Base's widths with stage 2 cut from 12 blocks to 2: every stage
+# still chains two blocks, and the JAX program of two encoder passes
+# compiles in about a third of the full depth's time
+SHORT_BASE = dict(J_VARIANTS["DFormer-Base"], depths=(2, 2, 2, 2))
+
+
 @pytest.fixture(scope="module")
 def pair():
-    """JAX and port DFormerTrav-Base + LightHamHead (embed 64, 2 classes)
-    on the same numpy-drawn weights, and the JAX outputs: meta_forward of a
-    B 1, S 1 episode, and the encoder stages and logits of a B 2 request of
-    the episode's two images (concatenated as meta_forward does, so that
-    XLA compiles one encoder for both)."""
+    """JAX and port DFormerTrav-Base (stage 2 cut to SHORT_BASE) +
+    LightHamHead (embed 64, 2 classes) on the same numpy-drawn weights, and
+    the JAX outputs: meta_forward of a B 1, S 1 episode, and the encoder
+    stages and logits of a B 2 request of the episode's two images
+    (concatenated as meta_forward does, so that XLA compiles one encoder
+    for both)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(J_VARIANTS, "DFormer-Base", SHORT_BASE)
+        mp.setitem(T_VARIANTS, "DFormer-Base", SHORT_BASE)
+        return _pair()
+
+
+def _pair():
     cfg = trav_cfg()
     jmodel = j_build_model(cfg, pallas="off")
     rng = np.random.RandomState(4)
@@ -310,7 +327,9 @@ def test_pretrained_load_fills_the_trav_encoder(pair, tmp_path):
     path = tmp_path / "trav_encoder.pth"
     torch.save({"state_dict": {f"backbone.{k}": v for k, v in enc.items()}},
                path)
-    fresh = t_build_model(pair["cfg"], device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(T_VARIANTS, "DFormer-Base", SHORT_BASE)
+        fresh = t_build_model(pair["cfg"], device="cpu")
     matched = load_pretrained_encoder(fresh, str(path))
     names = {n for n, _ in fresh.encoder_backbone.named_parameters()}
     assert sorted(matched) == sorted(f"encoder_backbone.{n}" for n in names)

@@ -19,6 +19,14 @@ the world-1 run. Imports torch and the port only.
     VAL_BATCH and at batch 2;
   * a BatchNorm forward and backward and the masked loss on this rank's
     rows of seeded global tensors;
+  * the two Trav tools on a narrow DFormerTrav (the DFormer-Base widths cut
+    to NARROW1) at a global batch of TRAV_BATCH, where every rank loads
+    one row of each global batch, as world 1 loads both: one step of
+    `tools.train_trav_fss.run` on class episodes (the contrastive term on),
+    its evaluation of TRAV_VAL_EPISODES episodes sharded and merged, its
+    checkpoint, and a rescue file that rank 0 writes and every rank
+    restores into a fresh trainer; one step of `tools.train_trav.run` and its pseudo-labels of
+    TRAV_UNLABELED images, sharded, with the one manifest;
 and saves what it saw to OUT_DIR/rank{r}.pt.
 """
 
@@ -42,10 +50,13 @@ from dformer_torch.ops.loss import \
 from dformer_torch.parallel import dist  # noqa: E402
 from dformer_torch.runtime.engine import Engine  # noqa: E402
 from dformer_torch.runtime.tb import TBWriter  # noqa: E402
-from dformer_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from dformer_torch.train.checkpoint import (CheckpointManager,  # noqa: E402
+                                            state_difference)
+from dformer_torch.train.fss import FSSTrainer  # noqa: E402
 from dformer_torch.train.loop import Trainer  # noqa: E402
 from dformer_torch.train.optim import (make_optimizer,  # noqa: E402
                                        trainable_mask_from_matched)
+from dformer_torch.tools import train_trav, train_trav_fss  # noqa: E402
 
 NARROW1 = dict(dims=(32, 64, 128, 256), depths=(1, 1, 1, 1),
                num_heads=(1, 2, 4, 8), windows=(0, 7, 7, 7),
@@ -185,6 +196,109 @@ def bn_and_loss():
                 loss=dist.all_sum(loss.detach()), dlogits=ll.grad)
 
 
+TRAV_BATCH, TRAV_VAL_EPISODES, TRAV_UNLABELED = 2, 3, 3
+
+
+def _trav_cfg(root):
+    """The Trav config at 64x96, a global batch of TRAV_BATCH, one shot,
+    one epoch, no warm-up, SGDM (AdamW's first step, g / (|g| + eps),
+    turns the summation-order noise of near-zero gradients into updates
+    of the rate's size)."""
+    cfg = configs.load_config("local_configs.Trav.DFormer_Base")
+    cfg.update(image_height=HW[0], image_width=HW[1], batch_size=TRAV_BATCH,
+               shots=1, nepochs=1, epochs=1, warm_up_epoch=0,
+               drop_path_rate=0.5, optimizer="SGDM", lr=1e-2,
+               pretrained_model=None,
+               log_dir_base=os.path.join(root, "trav"),
+               save_dir=os.path.join(root, "pseudo"))
+    return cfg
+
+
+def _trav_data():
+    """(class episodes, val episodes, labelled rows, unlabelled rows) in
+    memory, seed-made: uint8 images, 0/1 labels (some 255), 360-beam
+    scans."""
+    rng = np.random.RandomState(2)
+
+    def imgs(n):
+        return rng.randint(0, 256, (n, *HW, 3)).astype(np.uint8)
+
+    def gts(n):
+        g = rng.randint(0, 2, (n, *HW)).astype(np.int32)
+        g[:, :3] = 255
+        return g
+
+    def scans(n):
+        return (rng.rand(n, 360) * 5).astype(np.float32)
+
+    classes = [dict(s_imgs=imgs(1), s_masks=gts(1), s_depths=scans(1),
+                    q_imgs=imgs(1), q_masks=gts(1), q_depths=scans(1))
+               for _ in range(TRAV_BATCH)]
+    val = [dict(s_img=imgs(1), s_gt=gts(1), s_depth=scans(1),
+                q_img=imgs(1)[0], q_gt=gts(1)[0], q_depth=scans(1)[0])
+           for _ in range(TRAV_VAL_EPISODES)]
+    labelled = [dict(rgb=imgs(1)[0], gt=gts(1)[0], laser=scans(1)[0])
+                for _ in range(TRAV_BATCH)]
+    unlabelled = [dict(rgb=imgs(1)[0], laser=scans(1)[0],
+                       rgb_path=f"frames/f{i}.png", depth_path=f"scans/s{i}.pkl")
+                  for i in range(TRAV_UNLABELED)]
+    return classes, val, labelled, unlabelled
+
+
+def trav(root):
+    """Both Trav tools on the narrow DFormerTrav: {"fss_losses",
+    "fss_contrastive", "fss_miou", "fss_state", "fss_checkpoints",
+    "trav_losses", "trav_state", "manifest" (rows with the save directory
+    cut off), "masks"}."""
+    classes, val, labelled, unlabelled = _trav_data()
+    base, init = VARIANTS["DFormer-Base"], entry._init_model
+
+    def with_branches(*args, **kw):
+        # LayerScales of 1, not the fresh 1e-6: the blocks' branches, and
+        # so their DropPath draws, reach the outputs
+        model = init(*args, **kw)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if ".layer_scale" in name:
+                    p.fill_(1.0)
+        return model
+
+    VARIANTS["DFormer-Base"] = NARROW1
+    entry._init_model = with_branches
+    try:
+        cfg = _trav_cfg(root)
+        fss = train_trav_fss.run(cfg, train_trav_fss.parse_args(
+            ["--device=cpu", "--no-amp", "--class-episodes"]),
+            datasets=(classes, val))
+        kept = [n for *_, n in fss["checkpoints"]._existing()]
+        # a rescue file of the FSS state (rank 0 writes), restored on
+        # every rank into a fresh trainer
+        ckpt = CheckpointManager(cfg.checkpoint_dir)
+        rescue = ckpt.save(fss["trainer"], 2, 0.0, extra={"preempted": True})
+        model, opt, sched, mask = entry.build_fss_training(cfg, None, "cpu")
+        fresh = FSSTrainer(model, opt, sched, cfg, mask)
+        ckpt.restore(fresh, rescue)
+        restored = state_difference(fss["trainer"], fresh)
+        cfg = _trav_cfg(root)
+        semi = train_trav.run(cfg, train_trav.parse_args(
+            ["--device=cpu", "--no-amp"]), datasets=(labelled, unlabelled))
+    finally:
+        VARIANTS["DFormer-Base"], entry._init_model = base, init
+    with open(semi["csv_path"]) as f:
+        manifest = f.read().replace(cfg.save_dir, "<save_dir>")
+    masks = {os.path.basename(p): np.load(p) for p in sorted(
+        os.path.join(cfg.save_dir, n) for n in os.listdir(cfg.save_dir)
+        if n.endswith(".npy"))}
+    return dict(fss_losses=fss["losses"], fss_contrastive=fss["contrastive"],
+                fss_miou=fss["miou"], fss_state=state(fss["trainer"]),
+                fss_checkpoints=kept,
+                fss_rescue_difference=restored,
+                trav_losses=semi["losses"],
+                trav_state={k: v.detach().clone()
+                            for k, v in semi["model"].state_dict().items()},
+                manifest=manifest, masks=masks)
+
+
 def run(out_dir):
     torch.set_num_threads(1)
     cfg = narrow_cfg(out_dir)
@@ -205,6 +319,7 @@ def run(out_dir):
         record["hist"] = evaluate(cfg, rank, world)
         record["hist_batch2"] = evaluate(cfg, rank, world, batch=2)
         record.update(bn_and_loss())
+        record.update(trav(out_dir))
     torch.save(record, os.path.join(out_dir, f"rank{rank}.pt"))
     return record
 
