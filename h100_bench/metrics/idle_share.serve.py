@@ -1,0 +1,6 @@
+"""Share of the traced window in which no operation ran on the device."""
+
+
+def read(run):
+    if run.trace is not None and run.trace.window_s > 0:
+        return 100.0 * (1.0 - run.trace.busy_s() / run.trace.window_s)
