@@ -19,9 +19,43 @@
 // 3.35 TB/s, so the work is compute-bound once the ratio-8 hidden tensor is
 // kept out of device memory, which is what the fusion is for. The bf16
 // kernel runs both products on the tensor cores with mma.sync (m16n8k16,
-// fp32 accumulate); wgmma, TMA and warp specialisation are later work. The
-// fp32 kernel (for checking against the plain version at a tight
-// tolerance) uses scalar FMAs.
+// fp32 accumulate); wgmma, TMA and warp specialisation are later work.
+//
+// The fp32 kernel (fp32 evaluation, and the check against the plain version
+// at a tight tolerance) runs in full fp32 on the FMA units: no TF32, no
+// tensor cores, erff. At DFormer-L stage 0 (bs8) its ~47 GFLOP take ~0.70 ms
+// at 67 TFLOP/s against ~35 us for ~118 MB of x in + out, so it is bound by
+// the FMA rate: what it has to keep out of its product loops is every other
+// instruction, above all loads from device memory (a warp load of fc2
+// weights from device memory at a stride of Ch touches 32 sectors, and a
+// loop of such loads runs at a few percent of the FMA rate) and
+// shared-memory loads that feed few FMAs. So:
+//   0. a launch of its own (layernorm_rows_fp32) writes y = LayerNorm(x) in
+//      fp32, so that no halo tile of y has to sit in shared memory whole and
+//      the tile size is free of C;
+//   1. one block per SM walks its hidden chunks as one sequence of steps,
+//      each a slice of y's halo tile with the chunk's fc1 rows (KS1 = 32
+//      channels of C), or a slice of the chunk's fc2 columns, copied by
+//      cp.async two steps ahead into a ring of three shared buffers; one
+//      barrier a step;
+//   2. both products are register-blocked outer products from shared
+//      memory: fc1 a thread tile of MP halo pixels x NH hidden channels,
+//      fc2 one of P2 output pixels x Q2 output channels (accumulated in
+//      registers over all chunks); per float4 of k, MP + NH (P2 + Q2) float4
+//      loads feed 4 MP NH (4 P2 Q2) FMAs, and a warp's loads are broadcasts
+//      over 8 x 4 (4 x 8) thread groups from rows on distinct banks;
+//   3. between them the depthwise taps, pos_b, the residual and erff on the
+//      fp32 h in shared memory, as the plain version orders them.
+//   Tiles: 8 x 16 with 64-channel chunks up to C 144, 16 warps, 6 x 4 and
+//   4 x Q2 thread tiles; 8 x 8 (also below C 144 where the map's width
+//   suits it) with 64-channel chunks up to C 288, and 4 x 8 with
+//   128-channel chunks above, 8 warps, 4 x 8 and 8 x Q2 thread tiles, up to
+//   72 accumulators a thread. So fc1 fills its warps, fc2's accumulators
+//   fit the registers, and shared memory holds 127-189 KB: one block per
+//   SM. What bounds it then (PERF.md): the product loops run FMAs at
+//   ~45-60% of the rate, starting the copies takes 11-16% of the warps'
+//   cycles and the taps with erff 4-12%; small maps split the hidden
+//   chunks over blocks (below) and lose to the card's wave of 132 blocks.
 //
 // Design (bf16). The Pallas grid walks (B, H/Th) in order on one core with a
 // double-buffered halo DMA; here every block is independent. A block of 512
@@ -95,16 +129,14 @@ __device__ unsigned long long g_phase_clk[kPhases];
 #define PHASE_END
 #endif
 
-constexpr int kThreads = 256;  // fp32 kernel and the split reduction
+constexpr int kThreads = 256;  // LayerNorm rows and the split reduction
 constexpr int kWarps = kThreads / 32;
-constexpr int kCK = 32;      // hidden channels per chunk, fp32 kernel
-constexpr int kTW = 8;       // output tile width; the tile height is TH
 constexpr int kMaxC = 576;   // DFormer-L stage 4
-constexpr int kLDH = kCK + 1;  // fp32 hidden tile row stride (floats)
 constexpr int kMmaThreads = 512;  // bf16 kernel
 constexpr int kMmaWarps = kMmaThreads / 32;
 
-// Fewer tile rows for wide C, to bound the fc2 accumulators per thread.
+// Fewer tile rows for wide C, to bound the fc2 accumulators per thread
+// (bf16 kernel).
 constexpr int tile_rows(int C) { return C <= 288 ? 8 : 4; }
 // Hidden channels per chunk of the bf16 kernel: 64 while fc1's chunk of
 // rows and fc2's of columns fit shared memory beside the tile.
@@ -657,77 +689,296 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as astype does
 }
 
-// Step 0 of the fp32 kernel: LayerNorm of every halo pixel (rows 0..NP-1 of
-// ys, stride ldy); pixels outside the image get zeros (their h is masked in
-// step 1 anyway).
-__device__ __forceinline__ void layernorm_tile(
-    const float* __restrict__ x, const float* __restrict__ ln_w,
-    const float* __restrict__ ln_b, float* ys, int ldy, int np, int b,
-    int row0, int col0, int H, int W, int C, float eps) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int p = warp; p < np; p += kWarps) {
-    const int r = row0 - 1 + p / (kTW + 2);
-    const int c = col0 - 1 + p % (kTW + 2);
-    float* yrow = ys + static_cast<size_t>(p) * ldy;
-    if (r < 0 || r >= H || c < 0 || c >= W) {
-      for (int i = lane; i < C; i += 32) yrow[i] = 0.f;
-      continue;
+// Step 0 of the fp32 kernel, a launch of its own: y = LayerNorm(x) of every
+// pixel in fp32, once per pixel. One warp per pixel, the pixel's x in
+// registers as float4 (C <= 576: at most 5 per lane).
+__global__ void __launch_bounds__(kThreads)
+layernorm_rows_fp32(const float* __restrict__ x,
+                    const float* __restrict__ ln_w,
+                    const float* __restrict__ ln_b, float* __restrict__ y,
+                    long long N, int C, float eps) {
+  constexpr int kMaxQuads = (kMaxC / 4 + 31) / 32;
+  const int lane = threadIdx.x % 32;
+  const long long p = static_cast<long long>(blockIdx.x) * kWarps +
+                      threadIdx.x / 32;
+  if (p >= N) return;
+  const int quads = C / 4;
+  const float4* xrow = reinterpret_cast<const float4*>(x + p * C);
+  float4* yrow = reinterpret_cast<float4*>(y + p * C);
+  float4 xv[kMaxQuads];
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxQuads; ++j) {
+    const int i = lane + 32 * j;
+    xv[j] = i < quads ? xrow[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+    s += (xv[j].x + xv[j].y) + (xv[j].z + xv[j].w);
+  }
+  const float mean = warp_sum(s) / C;
+  float var = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxQuads; ++j) {
+    if (lane + 32 * j < quads) {
+      const float d0 = xv[j].x - mean, d1 = xv[j].y - mean;
+      const float d2 = xv[j].z - mean, d3 = xv[j].w - mean;
+      var += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
     }
-    const float* xrow = x + ((static_cast<size_t>(b) * H + r) * W + c) * C;
-    float s = 0.f;
-    for (int i = lane; i < C; i += 32) s += xrow[i];
-    const float mean = warp_sum(s) / C;
-    float v = 0.f;
-    for (int i = lane; i < C; i += 32) {
-      const float d = xrow[i] - mean;
-      v += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(var) / C + eps);
+#pragma unroll
+  for (int j = 0; j < kMaxQuads; ++j) {
+    const int i = lane + 32 * j;
+    if (i < quads) {
+      const int c = 4 * i;
+      yrow[i] = make_float4((xv[j].x - mean) * rstd * ln_w[c] + ln_b[c],
+                            (xv[j].y - mean) * rstd * ln_w[c + 1] + ln_b[c + 1],
+                            (xv[j].z - mean) * rstd * ln_w[c + 2] + ln_b[c + 2],
+                            (xv[j].w - mean) * rstd * ln_w[c + 3] + ln_b[c + 3]);
     }
-    const float rstd = rsqrtf(warp_sum(v) / C + eps);
-    for (int i = lane; i < C; i += 32)
-      yrow[i] = (xrow[i] - mean) * rstd * ln_w[i] + ln_b[i];
   }
 }
 
-// Step 2 of the fp32 kernel for one output pixel q of the tile and hidden
-// channel ch0 + lane: depthwise 3x3 over the fp32 hidden tile hs, + pos_b +
-// residual, exact GELU.
-__device__ __forceinline__ float dwconv_gelu(const float* hs, int q,
-                                             const float (&pw)[9], float pb) {
-  const int lane = threadIdx.x % 32;
-  const int qr = q / kTW, qc = q % kTW;
-  float a = 0.f;
-#pragma unroll
-  for (int dr = 0; dr < 3; ++dr)
-#pragma unroll
-    for (int dc = 0; dc < 3; ++dc)
-      a = fmaf(hs[((qr + dr) * (kTW + 2) + qc + dc) * kLDH + lane],
-               pw[dr * 3 + dc], a);
-  return gelu_erf(a + pb + hs[((qr + 1) * (kTW + 2) + qc + 1) * kLDH + lane]);
-}
+constexpr int kF32Stages = 3;     // copy stages in flight
 
-// Scalar-FMA path, for checking against the plain version at a tight
-// tolerance: 256 threads, 32-channel chunks, one hidden channel per lane in
-// steps 1-2 (erff GELU); in step 3 warp w owns output column w of every
-// tile row and lane the output channels lane + 32 * j.
-
-template <int TH>
-struct ScalarShape {
-  static constexpr int NO = TH * kTW;
-  static constexpr int NP = (TH + 2) * (kTW + 2);
-  static constexpr int PP = (NP + kWarps - 1) / kWarps;  // halo px per warp
+// The tile of the fp32 kernel: TH x TW outputs, (TH+2) x (TW+2) halo
+// pixels, CK-channel hidden chunks. fc1 thread tiles are MP halo pixels x NH
+// hidden channels, a warp 8 pixel groups x 4 channel groups; fc2 thread
+// tiles P2 output pixels x Q2 output channels, a warp 4 x 8 groups. A
+// thread's pixels and channels are strided by the group counts, so the
+// eight (four) rows a warp reads with one float4 load sit on distinct banks
+// (row strides of 4 mod 32 floats).
+template <int TH, int TW, int CK_, int MP_, int Q2_>
+struct F32Tile {
+  static constexpr int CK = CK_, MP = MP_, Q2 = Q2_;
+  // one block per SM: 16 warps with MP x 4 (fc1) and 4 x Q2 (fc2) thread
+  // tiles at the 16-wide tile, else 8 warps with MP x 8 and 8 x Q2 (on the
+  // card 8 warps ran C 192-576 faster than 16, and C 48-144 slower)
+  static constexpr int THREADS = TW == 16 ? 512 : 256, WARPS = THREADS / 32;
+  static constexpr int NO = TH * TW;               // output pixels
+  static constexpr int NP = (TH + 2) * (TW + 2);   // halo pixels
+  static constexpr int KS1 = 32;                   // C per fc1 step
+  static constexpr int LDA = KS1 + 4;              // fc1 stage row stride
+  static constexpr int NPG1 = (NP + MP - 1) / MP;  // fc1 pixel groups
+  static constexpr int NPP = NPG1 * MP;            // y rows of an fc1 stage
+  static constexpr int NH = THREADS == 512 ? 4 : 8;  // fc1 channels/thread
+  static constexpr int NCG1 = CK / NH;             // fc1 channel groups
+  static constexpr int WC1 = NCG1 / 4;             // fc1 warps across CK
+  static constexpr int P2 = THREADS == 512 ? 4 : 8;  // fc2 pixels/thread
+  static constexpr int NPG2 = NO / P2;             // fc2 pixel groups
+  static constexpr int NCG2 = THREADS / NPG2;      // fc2 channel groups
+  static constexpr int WC2 = NCG2 / 8;             // fc2 warps across C
+  static constexpr int CP = NCG2 * Q2;             // output channels covered
+  // hidden channels per fc2 step: its fc2_w slice, [CP][KS2 + 4], near the
+  // size of an fc1 stage
+  static constexpr int KS2 = CP <= 96 ? 64 : CP <= 288 ? 32 : 16;
+  static constexpr int LDB = KS2 + 4;
+  static constexpr int FC1_FLOATS = (NPP + CK) * LDA;
+  static constexpr int STAGE =
+      FC1_FLOATS > CP * LDB ? FC1_FLOATS : CP * LDB;  // floats
+  static constexpr int LDH = CK + 4;               // hs, gs row stride
+  static constexpr int CPT = TW * CK / THREADS;    // dwconv columns/thread
+  static_assert((NPG1 + 7) / 8 * WC1 == WARPS, "fc1 warps");
+  static_assert(NPG2 / 4 * WC2 == WARPS && NPG2 % 4 == 0, "fc2 warps");
+  static_assert(CPT >= 1 && CPT * THREADS == TW * CK, "dwconv strips");
+  static_assert(CK % KS2 == 0 && STAGE % 4 == 0, "steps");
 };
 
-template <int TH>
-size_t scalar_smem_bytes(int C) {
-  using S = ScalarShape<TH>;
-  return sizeof(float) * (S::NP * kLDH + S::NO * kLDH +
-                          static_cast<size_t>(S::NP) * C);
+// Copy steps of one hidden chunk at width C: its fc1 steps, then its fc2
+// steps.
+template <class S>
+int f32_chunk_steps(int C) {
+  return (C + S::KS1 - 1) / S::KS1 + S::CK / S::KS2;
 }
 
-template <int TH, int NC>
-__global__ void __launch_bounds__(kThreads)
-fused_mlp_fwd_fp32(const float* __restrict__ x, const float* __restrict__ ln_w,
-                   const float* __restrict__ ln_b,
+template <class S>
+size_t f32_smem_bytes() {
+  return sizeof(float) *
+         (static_cast<size_t>(kF32Stages) * S::STAGE + (S::NP + S::NO) * S::LDH);
+}
+
+// An fc1 step's copies are rows of KS1 floats: y's halo tile (rows
+// 0..NP-1) and the chunk's fc1 rows (rows NPP..NPP+CK-1 of the stage), stride
+// LDA, 16 bytes a copy. Thread tid always copies float4 group tid % G of rows
+// tid / G + (THREADS / G) * m; F32Copies holds those rows' pixels of y.
+template <class S>
+struct F32Copies {
+  static constexpr int G = S::KS1 / 4;
+  static constexpr int RSTEP = S::THREADS / G;
+  static constexpr int M = ((S::NP + S::CK) * G + S::THREADS - 1) / S::THREADS;
+  int pix[M];  // the row's pixel of y, -1 outside the image or past NP
+
+  template <int TW>
+  static __device__ __forceinline__ F32Copies make(int b, int row0, int col0,
+                                                   int H, int W) {
+    F32Copies out;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int row = threadIdx.x / G + RSTEP * m;
+      const int r = row0 - 1 + row / (TW + 2), c = col0 - 1 + row % (TW + 2);
+      out.pix[m] = row < S::NP && r >= 0 && r < H && c >= 0 && c < W
+                       ? (b * H + r) * W + c
+                       : -1;
+    }
+    return out;
+  }
+
+  // Start copying columns k0..k0+KS1 of chunk ch0's fc1 step. Rows of halo
+  // pixels outside the image and of hidden channels past Ch are left as
+  // they are: their h is set to zero after the product.
+  __device__ __forceinline__ void stage(float* buf,
+                                        const float* __restrict__ y,
+                                        const float* __restrict__ fc1_w,
+                                        int ch0, int k0, int C, int Ch) const {
+    const int g = threadIdx.x % G;
+    if (4 * g >= C - k0) return;  // past C in the last step
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int row = threadIdx.x / G + RSTEP * m;
+      if (row < S::NP) {
+        if (pix[m] >= 0)
+          cp_async16(buf + row * S::LDA + 4 * g,
+                     y + static_cast<size_t>(pix[m]) * C + k0 + 4 * g);
+      } else if (row < S::NP + S::CK && ch0 + row - S::NP < Ch) {
+        const int n = row - S::NP;
+        cp_async16(buf + (S::NPP + n) * S::LDA + 4 * g,
+                   fc1_w + static_cast<size_t>(ch0 + n) * C + k0 + 4 * g);
+      }
+    }
+  }
+};
+
+// Start copying hidden channels k0..k0+KS2 of fc2 ([C, Ch] layout) into
+// [C][LDB]; channels past Ch are zeroed (their g is zero too).
+template <class S>
+__device__ __forceinline__ void stage_fc2_fp32(float* buf,
+                                               const float* __restrict__ fc2_w,
+                                               int k0, int C, int Ch) {
+  constexpr int G = S::KS2 / 4;
+  for (int i = threadIdx.x; i < C * G; i += S::THREADS) {
+    const int c = i / G, g = i % G;
+    float* dst = buf + c * S::LDB + 4 * g;
+    if (k0 + 4 * g < Ch)
+      cp_async16(dst, fc2_w + static_cast<size_t>(c) * Ch + k0 + 4 * g);
+    else
+      zero16(dst);
+  }
+}
+
+// One fc1 step: the thread's MP pixels (pg + NPG1 * i) x NH hidden channels
+// (cg + NCG1 * j) over the KS1 columns of the stage (TAIL: the first kn):
+// per float4 of k, MP + NH float4 loads for 4 * MP * NH FMAs.
+template <class S, bool TAIL>
+__device__ __forceinline__ void fc1_step_fp32(float (&acc)[S::MP][S::NH],
+                                              const float* buf, int pg, int cg,
+                                              int kn) {
+  const float* a = buf + pg * S::LDA;
+  const float* w = buf + (S::NPP + cg) * S::LDA;
+#pragma unroll
+  for (int k = 0; k < S::KS1; k += 4) {
+    if (TAIL && k >= kn) break;
+    float4 av[S::MP];
+#pragma unroll
+    for (int i = 0; i < S::MP; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + i * S::NPG1 * S::LDA + k);
+#pragma unroll
+    for (int j = 0; j < S::NH; ++j) {
+      const float4 bw =
+          *reinterpret_cast<const float4*>(w + j * S::NCG1 * S::LDA + k);
+#pragma unroll
+      for (int i = 0; i < S::MP; ++i) {
+        acc[i][j] = fmaf(av[i].x, bw.x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bw.y, acc[i][j]);
+        acc[i][j] = fmaf(av[i].z, bw.z, acc[i][j]);
+        acc[i][j] = fmaf(av[i].w, bw.w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// The 3x3 depthwise taps + pos_b + residual h, then the exact GELU, for
+// hidden channel n = tid % CK of the chunk and CPT columns of the tile: a
+// 3-row window of h slides down each column, so an output loads 3 values of
+// h, not 10. Arithmetic as the plain version's order of taps.
+template <class S, int TH, int TW>
+__device__ __forceinline__ void dwconv_gelu_fp32(
+    const float* hs, float* gs, const float* __restrict__ pos_w,
+    const float* __restrict__ pos_b, int ch0, int Ch) {
+  constexpr int kCols = S::THREADS / S::CK;  // column stride
+  const int n = threadIdx.x % S::CK, cb = threadIdx.x / S::CK;
+  const bool ok = ch0 + n < Ch;
+  float pw[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i)
+    pw[i] = ok ? pos_w[static_cast<size_t>(i) * Ch + ch0 + n] : 0.f;
+  const float pb = ok ? pos_b[ch0 + n] : 0.f;
+#pragma unroll
+  for (int m = 0; m < S::CPT; ++m) {
+    const int c = cb + kCols * m;
+    const float* col = hs + c * S::LDH + n;
+    float win[3][3];
+#pragma unroll
+    for (int dr = 0; dr < 2; ++dr)
+#pragma unroll
+      for (int dc = 0; dc < 3; ++dc)
+        win[dr][dc] = col[(dr * (TW + 2) + dc) * S::LDH];
+#pragma unroll
+    for (int r = 0; r < TH; ++r) {
+#pragma unroll
+      for (int dc = 0; dc < 3; ++dc)
+        win[(r + 2) % 3][dc] = col[((r + 2) * (TW + 2) + dc) * S::LDH];
+      float a = 0.f;
+#pragma unroll
+      for (int dr = 0; dr < 3; ++dr)
+#pragma unroll
+        for (int dc = 0; dc < 3; ++dc)
+          a = fmaf(win[(r + dr) % 3][dc], pw[dr * 3 + dc], a);
+      gs[(r * TW + c) * S::LDH + n] = gelu_erf(a + pb + win[(r + 1) % 3][1]);
+    }
+  }
+}
+
+// One fc2 step: the thread's P2 output pixels (pg2 + NPG2 * i) x Q2 output
+// channels (cg2 + NCG2 * j; rows past C read row C - 1 into accumulators the
+// output never reads) over KS2 hidden channels: per float4 of k, P2 + Q2
+// float4 loads for 4 * P2 * Q2 FMAs.
+template <class S>
+__device__ __forceinline__ void fc2_step_fp32(float (&acc)[S::P2][S::Q2],
+                                              const float* g,
+                                              const float* buf, int pg2,
+                                              int cg2, int C) {
+  const float* a = g + pg2 * S::LDH;
+#pragma unroll
+  for (int k = 0; k < S::KS2; k += 4) {
+    float4 av[S::P2];
+#pragma unroll
+    for (int i = 0; i < S::P2; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + i * S::NPG2 * S::LDH + k);
+#pragma unroll
+    for (int j = 0; j < S::Q2; ++j) {
+      const int c = min(cg2 + S::NCG2 * j, C - 1);
+      const float4 bw = *reinterpret_cast<const float4*>(buf + c * S::LDB + k);
+#pragma unroll
+      for (int i = 0; i < S::P2; ++i) {
+        acc[i][j] = fmaf(av[i].x, bw.x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bw.y, acc[i][j]);
+        acc[i][j] = fmaf(av[i].z, bw.z, acc[i][j]);
+        acc[i][j] = fmaf(av[i].w, bw.w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// Register-blocked fp32 path: y = LayerNorm(x) comes from layernorm_rows_fp32.
+// A block walks its hidden chunks as one sequence of steps, each staged by
+// cp.async kF32Stages - 1 steps ahead into a ring of shared buffers, one
+// barrier per step: per chunk, ceil(C / KS1) fc1 steps (a KS1-column slice of
+// y's halo tile and of the chunk's fc1 rows; fc1's sums stay in registers),
+// after the last of them h (+ fc1_b, zero outside the image) into hs, a
+// barrier, the depthwise taps and GELU into gs; then CK / KS2 fc2 steps (a
+// slice of the chunk's fc2 columns) into the output's register
+// accumulators. No weight is read from device memory inside a product.
+template <int TH, int TW, int CK, int MP, int Q2>
+__global__ void __launch_bounds__(F32Tile<TH, TW, CK, MP, Q2>::THREADS, 1)
+fused_mlp_fwd_fp32(const float* __restrict__ y,      // LayerNorm(x)
                    const float* __restrict__ fc1_w,  // [Ch, C]
                    const float* __restrict__ fc1_b,
                    const float* __restrict__ pos_w,  // [9, Ch]
@@ -735,93 +986,120 @@ fused_mlp_fwd_fp32(const float* __restrict__ x, const float* __restrict__ ln_w,
                    const float* __restrict__ fc2_w,  // [C, Ch]
                    const float* __restrict__ fc2_b, float* __restrict__ out,
                    float* __restrict__ partial, int B, int H, int W, int C,
-                   int Ch, float eps, int nsplit, int cps) {
-  using S = ScalarShape<TH>;
-  constexpr int NP = S::NP, NO = S::NO, PP = S::PP;
+                   int Ch, int nsplit, int cps) {
+  using S = F32Tile<TH, TW, CK, MP, Q2>;
   extern __shared__ float4 smem_raw[];
-  float* hs = reinterpret_cast<float*>(smem_raw);  // [NP][kLDH]
-  float* gs = hs + NP * kLDH;                      // [NO][kLDH]
-  float* ys = gs + NO * kLDH;                      // [NP][C]
+  float* stages = reinterpret_cast<float*>(smem_raw);  // [kF32Stages][STAGE]
+  float* hs = stages + kF32Stages * S::STAGE;          // [NP][LDH]
+  float* gs = hs + S::NP * S::LDH;                     // [NO][LDH]
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int b = blockIdx.z / nsplit, split = blockIdx.z % nsplit;
-  const int ch_begin = split * cps * kCK;
-  const int ch_end = min(Ch, ch_begin + cps * kCK);
-  const int row0 = blockIdx.y * TH, col0 = blockIdx.x * kTW;
+  const int ch_begin = split * cps * CK;
+  const int ch_end = min(Ch, ch_begin + cps * CK);
+  const int row0 = blockIdx.y * TH, col0 = blockIdx.x * TW;
+  const int n1 = (C + S::KS1 - 1) / S::KS1;  // fc1 steps a chunk
+  const int per_chunk = n1 + CK / S::KS2;
+  const int nsteps = (ch_end - ch_begin + CK - 1) / CK * per_chunk;
+  // fc1 and fc2 thread tiles
+  const int cg = warp % S::WC1 * 4 + lane % 4, pg = warp / S::WC1 * 8 + lane / 4;
+  const int cg2 = warp % S::WC2 * 8 + lane % 8;
+  const int pg2 = warp / S::WC2 * 4 + lane / 8;
 
-  layernorm_tile(x, ln_w, ln_b, ys, C, NP, b, row0, col0, H, W, C, eps);
+  const F32Copies<S> copies = F32Copies<S>::template make<TW>(b, row0, col0,
+                                                              H, W);
+  // the next step to copy: its index, its place in its chunk, the chunk
+  int next = 0, next_s = 0, next_ch0 = ch_begin;
+  // one commit group a call, empty past the last step
+  auto start_copies = [&]() {
+    if (next < nsteps) {
+      float* buf = stages + next % kF32Stages * S::STAGE;
+      if (next_s < n1)
+        copies.stage(buf, y, fc1_w, next_ch0, next_s * S::KS1, C, Ch);
+      else
+        stage_fc2_fp32<S>(buf, fc2_w, next_ch0 + (next_s - n1) * S::KS2, C,
+                          Ch);
+    }
+    cp_async_commit();
+    ++next;
+    if (++next_s == per_chunk) next_s = 0, next_ch0 += CK;
+  };
 
-  float acc[TH][NC];
+  PHASE_BEGIN
 #pragma unroll
-  for (int i = 0; i < TH; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
+  for (int t = 0; t < kF32Stages - 1; ++t) start_copies();
+  PHASE(kPhStage)
+  // step t's buffer, once it has landed for every thread; step t - 1's
+  // buffer is then free for step t + kF32Stages - 1
+  auto begin_step = [&](int t) {
+    cp_async_wait<kF32Stages - 2>();
+    __syncthreads();
+    PHASE(kPhWait)
+    start_copies();  // step t + kF32Stages - 1
+    PHASE(kPhStage)
+    return static_cast<const float*>(stages + t % kF32Stages * S::STAGE);
+  };
 
-  for (int ch0 = ch_begin; ch0 < ch_end; ch0 += kCK) {
-    __syncthreads();  // ys written / last chunk's gs readers done
-    const int k = ch0 + lane;
-    // 1. fc1 for hidden channel k over the halo tile
-    float h[PP];
+  float acc[S::P2][Q2];
 #pragma unroll
-    for (int i = 0; i < PP; ++i) h[i] = 0.f;
-    const float* wrow = fc1_w + static_cast<size_t>(k) * C;
-    for (int c = 0; c < C; c += 4) {
-      const float4 w = *reinterpret_cast<const float4*>(wrow + c);
+  for (int i = 0; i < S::P2; ++i)
 #pragma unroll
-      for (int i = 0; i < PP; ++i) {
-        const int p = warp + i * kWarps;
-        if (p < NP) {
-          const float4 y = *reinterpret_cast<const float4*>(ys + p * C + c);
-          h[i] = fmaf(y.w, w.w, fmaf(y.z, w.z,
-                 fmaf(y.y, w.y, fmaf(y.x, w.x, h[i]))));
+    for (int j = 0; j < Q2; ++j) acc[i][j] = 0.f;
+
+  int t = 0;
+  for (int ch0 = ch_begin; ch0 < ch_end; ch0 += CK) {
+    float h[MP][S::NH];
+#pragma unroll
+    for (int i = 0; i < MP; ++i)
+#pragma unroll
+      for (int j = 0; j < S::NH; ++j) h[i][j] = 0.f;
+    for (int s = 0; s < n1; ++s, ++t) {
+      const float* buf = begin_step(t);
+      // the last step of a C that is no multiple of KS1 is a shorter one
+      const int kn = C - s * S::KS1;
+      if (pg < S::NPG1) {
+        if (kn >= S::KS1)
+          fc1_step_fp32<S, false>(h, buf, pg, cg, kn);
+        else
+          fc1_step_fp32<S, true>(h, buf, pg, cg, kn);
+      }
+      PHASE(kPhFc1)
+    }
+    if (pg < S::NPG1) {
+#pragma unroll
+      for (int i = 0; i < MP; ++i) {
+        const int p = pg + S::NPG1 * i;
+        if (p >= S::NP) continue;
+        const bool in = in_image<TW>(p, row0, col0, H, W);
+#pragma unroll
+        for (int j = 0; j < S::NH; ++j) {
+          const int n = cg + S::NCG1 * j;
+          hs[p * S::LDH + n] =
+              in && ch0 + n < Ch ? h[i][j] + fc1_b[ch0 + n] : 0.f;
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < PP; ++i) {
-      const int p = warp + i * kWarps;
-      if (p < NP)
-        hs[p * kLDH + lane] =
-            in_image<kTW>(p, row0, col0, H, W) ? h[i] + fc1_b[k] : 0.f;
-    }
-    __syncthreads();
-
-    // 2. depthwise 3x3 + pos_b + residual, GELU
-    float pw[9];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) pw[i] = pos_w[static_cast<size_t>(i) * Ch + k];
-#pragma unroll
-    for (int j = 0; j < NO / kWarps; ++j) {
-      const int q = warp + j * kWarps;
-      gs[q * kLDH + lane] = dwconv_gelu(hs, q, pw, pos_b[k]);
-    }
-    __syncthreads();
-
-    // 3. fc2 share of this chunk
-    for (int kk = 0; kk < kCK; ++kk) {
-      float wv[NC];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int c = lane + 32 * j;
-        wv[j] = c < C ? fc2_w[static_cast<size_t>(c) * Ch + ch0 + kk] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < TH; ++i) {
-        const float gv = gs[(i * kTW + warp) * kLDH + kk];
-#pragma unroll
-        for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(gv, wv[j], acc[i][j]);
-      }
+    PHASE(kPhFc1)
+    __syncthreads();  // hs complete; gs free since the last chunk's fc2
+    PHASE(kPhWait)
+    dwconv_gelu_fp32<S, TH, TW>(hs, gs, pos_w, pos_b, ch0, Ch);
+    PHASE(kPhDw)
+    for (int s = 0; s < CK / S::KS2; ++s, ++t) {
+      const float* buf = begin_step(t);
+      fc2_step_fp32<S>(acc, gs + s * S::KS2, buf, pg2, cg2, C);
+      PHASE(kPhFc2)
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < TH; ++i) {
-    const int r = row0 + i, c = col0 + warp;
+  for (int i = 0; i < S::P2; ++i) {
+    const int q = pg2 + S::NPG2 * i;
+    const int r = row0 + q / TW, c = col0 + q % TW;
     if (r >= H || c >= W) continue;
     const size_t pix = (static_cast<size_t>(b) * H + r) * W + c;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int oc = lane + 32 * j;
+    for (int j = 0; j < Q2; ++j) {
+      const int oc = cg2 + S::NCG2 * j;
       if (oc >= C) continue;
       if (partial != nullptr)
         partial[(static_cast<size_t>(split) * B * H * W + pix) * C + oc] =
@@ -830,6 +1108,8 @@ fused_mlp_fwd_fp32(const float* __restrict__ x, const float* __restrict__ ln_w,
         out[pix * C + oc] = acc[i][j] + fc2_b[oc];
     }
   }
+  PHASE(kPhOut)
+  PHASE_END
 }
 
 // ------------------------------------------------------------- splits ---
@@ -848,7 +1128,11 @@ reduce_splits_kernel(const float* __restrict__ partial,
   }
 }
 
-// One kernel instantiation and how it launches.
+// One kernel instantiation and how it launches, and the cost of a block's
+// prologue for the caller's split model: prologue_steps of the kernel's
+// pipeline steps, of which a hidden chunk takes chunk_steps (the bf16
+// kernel's prologue, its halo tile and first weights, is taken as one
+// chunk; the fp32 kernel's is its first kF32Stages - 1 copy steps).
 struct Launch {
   const void* fn;
   size_t smem;
@@ -856,12 +1140,47 @@ struct Launch {
   int tw;
   int chunk;
   int threads;
+  int prologue_steps = 1;
+  int chunk_steps = 1;
 };
 
 // The widest output tile this file has at width C in the I/O type: 16
-// columns for the bf16 kernel up to C 192 (its shared memory allows it), 8
-// otherwise.
-int max_tile_cols(int C, int is_bf16) { return is_bf16 && C <= 192 ? 16 : 8; }
+// columns for the bf16 kernel up to C 192 (its shared memory allows it) and
+// for the fp32 kernel up to C 144 (its fc2 accumulators), 8 otherwise.
+int max_tile_cols(int C, int is_bf16) {
+  return C <= (is_bf16 ? 192 : 144) ? 16 : 8;
+}
+
+// The fp32 kernel at width C with tiles tw columns wide (8 or the widest):
+// 8 x 16 or 8 x 8 tiles with 64-channel chunks up to C 144, 8 x 8 up to
+// C 288, 4 x 8 with 128-channel chunks above (fc1 fills its 8 warps; fc2's
+// accumulators stay at most 72 a thread); Q2 output channels per fc2 thread
+// tile, enough to cover C (fn null if none).
+Launch pick_fp32(int C, int tw) {
+  const int th = C <= 288 ? 8 : 4, ck = C <= 288 ? 64 : 128;
+  const int q2 = (C * th * tw + 2047) / 2048;  // C / NCG2, NCG2 = 2048 / NO
+#define DFORMER_F32_CASE(TH, TW, CK, MP, Q)                                  \
+  if (th == TH && tw == TW && q2 == Q)                                       \
+    return {reinterpret_cast<const void*>(                                   \
+                fused_mlp_fwd_fp32<TH, TW, CK, MP, Q>),                      \
+            f32_smem_bytes<F32Tile<TH, TW, CK, MP, Q>>(), TH, TW, CK,        \
+            F32Tile<TH, TW, CK, MP, Q>::THREADS, kF32Stages - 1,             \
+            f32_chunk_steps<F32Tile<TH, TW, CK, MP, Q>>(C)};
+  DFORMER_F32_CASE(8, 16, 64, 6, 1) DFORMER_F32_CASE(8, 16, 64, 6, 2)
+  DFORMER_F32_CASE(8, 16, 64, 6, 3) DFORMER_F32_CASE(8, 16, 64, 6, 4)
+  DFORMER_F32_CASE(8, 16, 64, 6, 5) DFORMER_F32_CASE(8, 16, 64, 6, 6)
+  DFORMER_F32_CASE(8, 16, 64, 6, 7) DFORMER_F32_CASE(8, 16, 64, 6, 8)
+  DFORMER_F32_CASE(8, 16, 64, 6, 9) DFORMER_F32_CASE(8, 8, 64, 4, 1)
+  DFORMER_F32_CASE(8, 8, 64, 4, 2) DFORMER_F32_CASE(8, 8, 64, 4, 3)
+  DFORMER_F32_CASE(8, 8, 64, 4, 4) DFORMER_F32_CASE(8, 8, 64, 4, 5)
+  DFORMER_F32_CASE(8, 8, 64, 4, 6) DFORMER_F32_CASE(8, 8, 64, 4, 7)
+  DFORMER_F32_CASE(8, 8, 64, 4, 8) DFORMER_F32_CASE(8, 8, 64, 4, 9)
+  DFORMER_F32_CASE(4, 8, 128, 4, 5) DFORMER_F32_CASE(4, 8, 128, 4, 6)
+  DFORMER_F32_CASE(4, 8, 128, 4, 7) DFORMER_F32_CASE(4, 8, 128, 4, 8)
+  DFORMER_F32_CASE(4, 8, 128, 4, 9)
+#undef DFORMER_F32_CASE
+  return {nullptr, 0, th, tw, ck, 0};
+}
 
 // The kernel this file runs at width C in the I/O type with tiles tw
 // columns wide (fn null if none).
@@ -893,19 +1212,7 @@ Launch pick(int C, int is_bf16, int tw) {
 #undef DFORMER_MMA_CASE
     return {nullptr, 0, th, tw, mma_chunk(C), kMmaThreads};
   }
-  const int nc = (C + 31) / 32;  // output channels per lane
-#define DFORMER_FP32_CASE(TH, N)                                         \
-  if (th == TH && nc == N)                                               \
-    return {reinterpret_cast<const void*>(fused_mlp_fwd_fp32<TH, N>),    \
-            scalar_smem_bytes<TH>(C), TH, kTW, kCK, kThreads};
-  DFORMER_FP32_CASE(8, 1) DFORMER_FP32_CASE(8, 2) DFORMER_FP32_CASE(8, 3)
-  DFORMER_FP32_CASE(8, 4) DFORMER_FP32_CASE(8, 5) DFORMER_FP32_CASE(8, 6)
-  DFORMER_FP32_CASE(8, 7) DFORMER_FP32_CASE(8, 8) DFORMER_FP32_CASE(8, 9)
-  DFORMER_FP32_CASE(4, 10) DFORMER_FP32_CASE(4, 11) DFORMER_FP32_CASE(4, 12)
-  DFORMER_FP32_CASE(4, 13) DFORMER_FP32_CASE(4, 14) DFORMER_FP32_CASE(4, 15)
-  DFORMER_FP32_CASE(4, 16) DFORMER_FP32_CASE(4, 17) DFORMER_FP32_CASE(4, 18)
-#undef DFORMER_FP32_CASE
-  return {nullptr, 0, th, kTW, kCK, kThreads};
+  return pick_fp32(C, tw);
 }
 
 }  // namespace
@@ -921,11 +1228,11 @@ extern "C" {
 // dformer_fused_mlp_fwd_occupancy reports for tw, tw 8 or the widest it
 // reports, and the splits must cover the ceil(Ch / chunk) hidden chunks
 // exactly. With nsplit above 1, partial is an fp32 scratch of
-// nsplit * B * H * W * C floats (else it may be null); for bf16, y is a
-// bf16 scratch of B * H * W * C for LayerNorm(x) (layernorm_rows, launched
-// first; fp32 ignores it). Requires Ch % 32 == 0, C <= 576, and
-// C % 16 == 0 (bf16) or C % 4 == 0 (fp32); cudaErrorInvalidValue
-// otherwise.
+// nsplit * B * H * W * C floats (else it may be null); y is a scratch of
+// B * H * W * C in the I/O type for LayerNorm(x) (layernorm_rows or
+// layernorm_rows_fp32, launched first). Requires Ch % 32 == 0, C <= 576, and
+// C % 16 == 0 (bf16) or C % 4 == 0 with x and y 16-byte aligned (fp32);
+// cudaErrorInvalidValue otherwise.
 int dformer_fused_mlp_fwd(const void* x, const float* ln_w, const float* ln_b,
                           const void* fc1_w, const float* fc1_b,
                           const void* pos_w, const float* pos_b,
@@ -940,7 +1247,9 @@ int dformer_fused_mlp_fwd(const void* x, const float* ln_w, const float* ln_b,
   const int nchunks = (Ch + k.chunk - 1) / k.chunk;
   if (k.fn == nullptr || th != k.th || cps <= 0 ||
       nsplit != (nchunks + cps - 1) / cps || B * nsplit > 65535 ||
-      (nsplit > 1 && partial == nullptr) || (is_bf16 && y == nullptr))
+      (nsplit > 1 && partial == nullptr) || y == nullptr ||
+      (!is_bf16 && (reinterpret_cast<uintptr_t>(x) |
+                    reinterpret_cast<uintptr_t>(y)) % 16 != 0))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaFuncSetAttribute(
@@ -949,23 +1258,21 @@ int dformer_fused_mlp_fwd(const void* x, const float* ln_w, const float* ln_b,
   if (e != cudaSuccess) return e;
   float* part = nsplit > 1 ? partial : nullptr;
   const dim3 grid((W + k.tw - 1) / k.tw, (H + k.th - 1) / k.th, B * nsplit);
-  if (is_bf16) {
-    const long long N = static_cast<long long>(B) * H * W;
-    const unsigned ln_blocks = static_cast<unsigned>((N + kWarps - 1) / kWarps);
+  const long long N = static_cast<long long>(B) * H * W;
+  const unsigned ln_blocks = static_cast<unsigned>((N + kWarps - 1) / kWarps);
+  if (is_bf16)
     layernorm_rows<<<ln_blocks, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), ln_w, ln_b,
         static_cast<__nv_bfloat16*>(y), N, C, eps);
-    const void* yc = y;
-    void* args[] = {&yc,    &fc1_w, &fc1_b, &pos_w, &pos_b, &fc2_w, &fc2_b,
-                    &out,   &part,  &B,     &H,     &W,     &C,     &Ch,
-                    &nsplit, &cps};
-    e = cudaLaunchKernel(k.fn, grid, dim3(k.threads), args, k.smem, s);
-  } else {
-    void* args[] = {&x,     &ln_w,  &ln_b, &fc1_w, &fc1_b, &pos_w, &pos_b,
-                    &fc2_w, &fc2_b, &out,  &part,  &B,     &H,     &W,
-                    &C,     &Ch,    &eps,  &nsplit, &cps};
-    e = cudaLaunchKernel(k.fn, grid, dim3(k.threads), args, k.smem, s);
-  }
+  else
+    layernorm_rows_fp32<<<ln_blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(x), ln_w, ln_b, static_cast<float*>(y), N,
+        C, eps);
+  const void* yc = y;
+  void* args[] = {&yc,    &fc1_w, &fc1_b, &pos_w, &pos_b, &fc2_w, &fc2_b,
+                  &out,   &part,  &B,     &H,     &W,     &C,     &Ch,
+                  &nsplit, &cps};
+  e = cudaLaunchKernel(k.fn, grid, dim3(k.threads), args, k.smem, s);
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return e;
   const size_t n = static_cast<size_t>(B) * H * W * C;
@@ -986,8 +1293,10 @@ int dformer_fused_mlp_fwd(const void* x, const float* ln_w, const float* ln_b,
 // block, dynamic shared memory in bytes, resident blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread
 // and local (spill) bytes per thread (cudaFuncGetAttributes; the same
-// numbers as the ptxas -v report beside the built library). The caller's
-// plan takes the tile, the chunk and the blocks per SM from here.
+// numbers as the ptxas -v report beside the built library), then into
+// out[8..9] a block's prologue in pipeline steps and the steps of a hidden
+// chunk. The caller's plan takes the tile, the chunk, the blocks per SM and
+// the prologue's cost in chunks from here.
 int dformer_fused_mlp_fwd_occupancy(int C, int is_bf16, int tw, int* out) {
   if (C <= 0 || C > kMaxC) return cudaErrorInvalidValue;
   const Launch k = pick(C, is_bf16, tw == 0 ? max_tile_cols(C, is_bf16) : tw);
@@ -1008,6 +1317,8 @@ int dformer_fused_mlp_fwd_occupancy(int C, int is_bf16, int tw, int* out) {
                                                       k.threads, k.smem);
   out[6] = attr.numRegs;
   out[7] = static_cast<int>(attr.localSizeBytes);
+  out[8] = k.prologue_steps;
+  out[9] = k.chunk_steps;
   return e;
 }
 

@@ -23,10 +23,10 @@ the card and how they are laid out. Only x and the eight parameters are
 saved for the backward, which recomputes the hidden tensors.
 
 One forward call is the kernel's launch, after one that writes
-LayerNorm(x) in bf16 (bf16 only) and before one that adds the hidden
-splits' fp32 partial sums in a fixed order when the plan `forward_plan`
-splits the hidden chunks of a tile over blocks (small maps);
-`fused_mlp.launches` counts calls.
+LayerNorm(x) in x's dtype and before one that adds the hidden splits' fp32
+partial sums in a fixed order when the plan `forward_plan` splits the
+hidden chunks of a tile over blocks (small maps); `fused_mlp.launches`
+counts calls.
 
 Rounding points differ by design: the kernels keep the hidden tensors (h,
 and in the backward dh) in fp32 and round only the matmul operands to the
@@ -136,8 +136,6 @@ WGRAD_TILE = (256, 96)   # K3 output tile: hidden rows x channels
 WGRAD_K = 32             # K3 pixels per stage
 K1_PROLOGUE_CHUNKS = 2   # a K1 block's halo staging and LayerNorm cost
                          # about two hidden chunks (measured on the card)
-FWD_PROLOGUE_CHUNKS = 1  # a forward block's staging of its halo tile and
-                         # first weights, taken as one chunk (not measured)
 LN_BLOCKS_PER_SM = 4
 K3_BLOCKS_PER_SM = 2
 K3_MIN_SLICE = 512
@@ -211,32 +209,35 @@ def forward_tile_cols(W, widest):
 
 
 def forward_plan(B, H, W, C, Ch, tile_rows, tile_cols, chunk, blocks_per_sm,
-                 sms) -> ForwardPlan:
+                 sms, prologue) -> ForwardPlan:
     """The launch plan of one forward call at this shape, for the kernel's
-    `tile_rows` x `tile_cols` tiles and hidden `chunk` at `blocks_per_sm`,
-    on a card of `sms` SMs (`card_forward_plan` takes them from the built
-    kernel and the card). Small maps split the hidden chunks over blocks
-    (`_chunks_per_split`, each block's prologue the halo LayerNorm)."""
+    `tile_rows` x `tile_cols` tiles and hidden `chunk` at `blocks_per_sm`
+    with a block's prologue costing `prologue` chunks, on a card of `sms`
+    SMs (`card_forward_plan` takes them from the built kernel and the
+    card). Small maps split the hidden chunks over blocks
+    (`_chunks_per_split`)."""
     tiles_h, tiles_w = _cdiv(H, tile_rows), _cdiv(W, tile_cols)
     nchunks = _cdiv(Ch, chunk)
     cps = _chunks_per_split(B * tiles_h * tiles_w, nchunks,
-                            sms * blocks_per_sm, FWD_PROLOGUE_CHUNKS)
+                            sms * blocks_per_sm, prologue)
     return ForwardPlan(tile_rows, tile_cols, tiles_h, tiles_w, chunk, cps,
                        _cdiv(nchunks, cps))
 
 
 FWD_OCCUPANCY_KEYS = ("tile_rows", "tile_cols", "chunk", "threads",
                       "smem_bytes", "blocks_per_sm", "registers",
-                      "local_bytes")
+                      "local_bytes", "prologue_steps", "chunk_steps")
 
 
 def forward_occupancy(C, dtype, tile_cols=0, device="cuda"):
     """{tile_rows, tile_cols, chunk, threads, smem_bytes, blocks_per_sm,
-    registers, local_bytes} of the forward kernel csrc/fused_mlp_fwd.cu runs
-    at this width and dtype with tiles `tile_cols` wide (0: the widest it
-    has): its tile, hidden channels per chunk, block size and dynamic shared
-    memory, and what the card reports for it (resident blocks per SM,
-    registers and spill bytes per thread)."""
+    registers, local_bytes, prologue_steps, chunk_steps} of the forward
+    kernel csrc/fused_mlp_fwd.cu runs at this width and dtype with tiles
+    `tile_cols` wide (0: the widest it has): its tile, hidden channels per
+    chunk, block size and dynamic shared memory, what the card reports for
+    it (resident blocks per SM, registers and spill bytes per thread), and
+    a block's prologue in the kernel's pipeline steps, of which a chunk
+    takes `chunk_steps` (bf16: one of one; fp32: two copy steps)."""
     _, occ, err = _kernel()
     out = (ctypes.c_int * len(FWD_OCCUPANCY_KEYS))()
     with torch.cuda.device(device):
@@ -250,8 +251,9 @@ def forward_occupancy(C, dtype, tile_cols=0, device="cuda"):
 @functools.lru_cache(maxsize=256)
 def card_forward_plan(B, H, W, C, Ch, dtype, device="cuda") -> ForwardPlan:
     """`forward_plan` with the tile width from `forward_tile_cols`, the tile
-    height, chunk and blocks per SM of the built kernel at that width, and
-    the SM count of the card; computed once per shape, dtype and device."""
+    height, chunk, blocks per SM and prologue of the built kernel at that
+    width, and the SM count of the card; computed once per shape, dtype and
+    device."""
     widest = forward_occupancy(C, dtype, 0, device)["tile_cols"]
     occ = forward_occupancy(C, dtype, forward_tile_cols(W, widest), device)
     if occ["blocks_per_sm"] < 1:
@@ -259,7 +261,8 @@ def card_forward_plan(B, H, W, C, Ch, dtype, device="cuda") -> ForwardPlan:
                            f"C={C}, {dtype}: {occ}")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return forward_plan(B, H, W, C, Ch, occ["tile_rows"], occ["tile_cols"],
-                        occ["chunk"], occ["blocks_per_sm"], sms)
+                        occ["chunk"], occ["blocks_per_sm"], sms,
+                        occ["prologue_steps"] / occ["chunk_steps"])
 
 
 def backward_occupancy(C, dtype, device="cuda"):
@@ -418,8 +421,8 @@ def _forward_cuda(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
     # small maps split the hidden channels over blocks: fp32 partial sums
     partial = (torch.empty((plan.nsplit, B, H, W, C), dtype=torch.float32,
                            device=x.device) if plan.nsplit > 1 else None)
-    # bf16: LayerNorm(x), written by a launch of its own before the kernel
-    y = torch.empty_like(x) if x.dtype == torch.bfloat16 else None
+    # LayerNorm(x), written by a launch of its own before the kernel
+    y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
@@ -427,7 +430,7 @@ def _forward_cuda(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w, fc2_b,
                 pos_b.data_ptr(), w2.data_ptr(), fc2_b.data_ptr(),
                 out.data_ptr(),
                 None if partial is None else partial.data_ptr(),
-                None if y is None else y.data_ptr(),
+                y.data_ptr(),
                 B, H, W, C, Ch, eps, plan.tile_rows, plan.tile_cols,
                 plan.chunks_per_split, plan.nsplit,
                 int(x.dtype == torch.bfloat16), stream)

@@ -17,7 +17,8 @@ import torch
 from dformer_torch import entry
 from dformer_torch.data.augment import (apply_train_augment,
                                         train_augment_draws)
-from dformer_torch.kernels.fused_mlp import (fused_mlp,
+from dformer_torch.kernels.fused_mlp import (card_forward_plan, forward_plan,
+                                             fused_mlp,
                                              fused_mlp_backward_reference,
                                              fused_mlp_reference)
 from dformer_torch.models.encoder import VARIANTS, MLPBlock
@@ -49,8 +50,8 @@ def _inputs(B, H, W, C, r, dtype, seed=0):
 # (B, H, W, C, ratio): a large map (one split), ragged small maps (hidden
 # channels split over blocks), the wide-C tile shape, and every width the
 # four variants (Tiny, Small, Base, Large) put through the kernel, at the
-# ratio of their stage (8, 8, 4, 4); (1, 9, 11, 32, 3), Ch = 96, leaves the
-# bf16 kernel's last 64-channel chunk half full; the last six are the odd
+# ratio of their stage (8, 8, 4, 4); (1, 9, 11, 32, 3), Ch = 96, leaves
+# either kernel's last 64-channel chunk half full; the last six are the odd
 # stage maps of DFormer-Large's multi-scale eval of 480x640 (inputs
 # 384x480, 608x800 and 736x960) at the widths where they occur.
 # tests/test_torch_fused_mlp_fwd.py keeps the same list (FWD_CARD_SHAPES)
@@ -83,6 +84,36 @@ def test_fused_mlp_kernel_matches_reference(shape, dtype):
     assert (got - want).abs().max().item() <= tol
     # no atomics: the hidden splits are added in a fixed order
     assert torch.equal(fused_mlp(*args).float(), got)
+
+
+# DFormer-Large's eight fused-MLP shapes at bs8, 480x640 (mlp and mlp_e2 of
+# each stage; tests/test_torch_fused_mlp_fwd.py::_main_path_shapes) and the
+# bf16 kernel's plan of each on an H100 SXM (132 SMs, one block per SM): tile
+# rows and columns, chunk, chunks per split, splits. The fp32 kernel has
+# tiles of its own; these stay as they are.
+BF16_MAIN_PLANS = {
+    (8, 120, 160, 96, 768): (8, 16, 64, 12, 1),
+    (8, 120, 160, 48, 384): (8, 16, 64, 6, 1),
+    (8, 60, 80, 192, 1536): (8, 16, 64, 12, 2),
+    (8, 60, 80, 96, 768): (8, 16, 64, 6, 2),
+    (8, 30, 40, 288, 1152): (8, 8, 64, 6, 3),
+    (8, 30, 40, 144, 576): (8, 8, 64, 3, 3),
+    (8, 15, 20, 576, 2304): (4, 8, 32, 18, 4),
+    (8, 15, 20, 288, 1152): (8, 8, 64, 4, 5)}
+
+
+@pytest.mark.cuda
+def test_bf16_forward_plans_are_unchanged():
+    _card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape, want in BF16_MAIN_PLANS.items():
+        plan = card_forward_plan(*shape, torch.bfloat16)
+        got = (plan.tile_rows, plan.tile_cols, plan.chunk,
+               plan.chunks_per_split, plan.nsplit)
+        # on another SM count, the same tiles and chunk at one block per SM
+        ref = forward_plan(*shape, *want[:3], 1, sms, 1)
+        assert got == (want if sms == 132 else
+                       (*want[:3], ref.chunks_per_split, ref.nsplit)), shape
 
 
 @pytest.mark.cuda

@@ -116,12 +116,20 @@ def _replay_forward_plan(x, ln_w, ln_b, fc1_w, fc1_b, pos_w, pos_b, fc2_w,
     return part.sum(0) + fc2_b
 
 
-@pytest.mark.parametrize("shape,tile_rows,tile_cols,chunk", [
-    ((1, 7, 13, 48, 8), 8, 8, 64),    # ragged tiles, six splits
-    ((2, 9, 19, 32, 3), 8, 16, 64),   # Ch = 96: the last chunk half full
-    ((1, 5, 9, 64, 4), 4, 8, 32)])    # the wide-C tile shape
+@pytest.mark.parametrize("shape,tile_rows,tile_cols,chunk,prologue", [
+    ((1, 7, 13, 48, 8), 8, 8, 64, 1),    # ragged tiles, six splits
+    ((2, 9, 19, 32, 3), 8, 16, 64, 1),   # Ch = 96: the last chunk half full
+    ((1, 5, 9, 64, 4), 4, 8, 32, 1),     # the wide-C tile shape (bf16)
+    # the fp32 kernel's tiles: 8 x 16 up to C 144, 8 x 8 up to C 288, and
+    # 4 x 8 with 128-channel chunks above, at the ragged stage-3 map of
+    # the 0.75 scale (a 384 x 480 input: 12 x 15); its prologue is two of
+    # the 7, 11 and 26 copy steps of a chunk at these widths
+    ((1, 9, 20, 144, 4), 8, 16, 64, 2 / 7),
+    ((1, 10, 9, 288, 4), 8, 8, 64, 2 / 11),
+    ((1, 12, 15, 576, 4), 4, 8, 128, 2 / 26)])
 def test_forward_plan_decomposition_matches_reference(shape, tile_rows,
-                                                      tile_cols, chunk):
+                                                      tile_cols, chunk,
+                                                      prologue):
     B, H, W, C, r = shape
     rng = np.random.RandomState(5)
     Ch = C * r
@@ -129,7 +137,8 @@ def test_forward_plan_decomposition_matches_reference(shape, tile_rows,
     ps = [torch.from_numpy((rng.randn(*s) * 0.2).astype(np.float32)) for s
           in [(C,), (C,), (C, Ch), (Ch,), (3, 3, Ch), (Ch,), (Ch, C), (C,)]]
     ps[0] += 1.0
-    plan = forward_plan(B, H, W, C, Ch, tile_rows, tile_cols, chunk, 1, 132)
+    plan = forward_plan(B, H, W, C, Ch, tile_rows, tile_cols, chunk, 1, 132,
+                        prologue)
     assert plan.nsplit > 1 and (H % tile_rows or W % tile_cols)
     got = _replay_forward_plan(x, *ps, plan)
     want = fused_mlp_reference(x, *ps)
@@ -156,15 +165,18 @@ PLAN_SHAPES = _main_path_shapes() + [
 
 
 @pytest.mark.parametrize("tile_rows,tile_cols,chunk",
-                         [(8, 16, 64), (8, 8, 64), (4, 8, 32), (8, 8, 32)])
+                         [(8, 16, 64), (8, 8, 64), (4, 8, 32), (8, 8, 32),
+                          (4, 8, 128)])
 def test_forward_plan_covers_every_pixel_and_channel_once(tile_rows,
                                                           tile_cols, chunk):
     """At each tile shape and chunk the kernels have, one or two blocks per
-    SM, and the SM counts of an H100 SXM (132) and PCIe (114)."""
-    for (B, H, W, C, Ch), blocks, sms in itertools.product(
-            PLAN_SHAPES, (1, 2), (132, 114)):
+    SM, the SM counts of an H100 SXM (132) and PCIe (114), and the bf16
+    kernel's prologue (a chunk) and the fp32 kernel's smallest (2 of 26
+    copy steps)."""
+    for (B, H, W, C, Ch), blocks, sms, prologue in itertools.product(
+            PLAN_SHAPES, (1, 2), (132, 114), (1, 2 / 26)):
         plan = forward_plan(B, H, W, C, Ch, tile_rows, tile_cols, chunk,
-                            blocks, sms)
+                            blocks, sms, prologue)
         assert (plan.tile_rows, plan.tile_cols, plan.chunk) == \
             (tile_rows, tile_cols, chunk)
         count = np.zeros(H, np.int64)
